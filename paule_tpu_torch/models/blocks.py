@@ -1,0 +1,127 @@
+"""Building blocks on ``(batch, time, channels)`` tensors, with parameters
+in the JAX package's layout (counterpart of ``paule_tpu/models/blocks.py``).
+
+The functions take tensors; the ``nn.Module``s hold parameters whose
+state-dict names follow the JAX parameter trees, so
+:func:`paule_tpu_torch.release.params_from_jax` fills them directly.
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def linear(w, b, x):
+    return x @ w + b
+
+
+def conv1d(w, b, x, *, groups=1):
+    """Convolution over time on ``x (B, T, C)`` with SAME padding
+    ``((k-1)//2, k//2)``; kernel ``w (k, in/groups, out)``."""
+    k = w.shape[0]
+    xc = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
+    out = F.conv1d(xc, w.permute(2, 1, 0), groups=groups)
+    return out.transpose(1, 2) + b
+
+
+def leaky_relu(x, negative_slope=0.01):
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def interleave_channels(a, b):
+    """``(B, T, C), (B, T, C) -> (B, T, 2C)`` in channel order
+    ``[a0, b0, a1, b1, ...]``."""
+    bsz, t, c = a.shape
+    return torch.stack([a, b], dim=-1).reshape(bsz, t, 2 * c)
+
+
+def gather_last_step(output, lens):
+    """Per-sample hidden state at index ``lens - 1`` (clamped into range):
+    ``(B, T, H), (B,) -> (B, H)``; ``lens=None`` means the last step."""
+    if lens is None:
+        return output[:, -1, :]
+    lens = torch.as_tensor(lens, device=output.device)
+    idx = torch.clamp(lens - 1, 0, output.shape[1] - 1).long()
+    return output[torch.arange(output.shape[0], device=output.device), idx]
+
+
+class Linear(nn.Module):
+    """``w (in, out)``, ``b (out,)``."""
+
+    def __init__(self, in_features, out_features):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(in_features, out_features))
+        self.b = nn.Parameter(torch.empty(out_features))
+
+    def forward(self, x):
+        return linear(self.w, self.b, x)
+
+
+class Conv1d(nn.Module):
+    """``w (k, in/groups, out)``, ``b (out,)``."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, groups=1):
+        super().__init__()
+        self.groups = groups
+        self.w = nn.Parameter(
+            torch.empty(kernel_size, in_channels // groups, out_channels))
+        self.b = nn.Parameter(torch.empty(out_channels))
+
+    def forward(self, x):
+        return conv1d(self.w, self.b, x, groups=self.groups)
+
+
+class LSTMLayer(nn.Module):
+    """``w_ih (in, 4H)``, ``w_hh (H, 4H)``, ``b (4H,)``, gates i, f, g, o."""
+
+    def __init__(self, input_size, hidden_size):
+        super().__init__()
+        self.w_ih = nn.Parameter(torch.empty(input_size, 4 * hidden_size))
+        self.w_hh = nn.Parameter(torch.empty(hidden_size, 4 * hidden_size))
+        self.b = nn.Parameter(torch.empty(4 * hidden_size))
+
+    def params(self):
+        return {"w_ih": self.w_ih, "w_hh": self.w_hh, "b": self.b}
+
+
+def lstm_stack(input_size, hidden_size, num_layers):
+    return nn.ModuleList(
+        LSTMLayer(input_size if i == 0 else hidden_size, hidden_size)
+        for i in range(num_layers))
+
+
+class TimeConvResBlock(nn.Module):
+    """Two channelwise time convolutions with a residual connection."""
+
+    def __init__(self, channels, filter_size):
+        super().__init__()
+        self.conv1 = Conv1d(channels, channels, filter_size, groups=channels)
+        self.conv2 = Conv1d(channels, channels, filter_size, groups=channels)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x)) + x
+
+
+class MelChannelConv(nn.Module):
+    """Convolution across neighbouring mel channels: ``fsc`` grouped time
+    convolutions on channel-shifted copies of the input, interleaved so that
+    output channel ``j*fsc + i`` comes from conv ``i``, group ``j``."""
+
+    def __init__(self, input_units, filter_size_channel):
+        super().__init__()
+        if input_units % filter_size_channel != 0:
+            raise ValueError(
+                "input_units must be divisible by filter_size_channel")
+        out_units = input_units // filter_size_channel
+        self.fsc = filter_size_channel
+        self.convs = nn.ModuleList(
+            Conv1d(input_units, out_units, 5, groups=out_units)
+            for _ in range(filter_size_channel))
+
+    def forward(self, x):
+        b, t, c = x.shape
+        xs = [F.pad(x, (i + 1, 0))[:, :, :c] for i in range(self.fsc - 2)]
+        xs.append(x)
+        xs.append(F.pad(x, (0, 1))[:, :, 1:])
+        outs = [conv(xi) for conv, xi in zip(self.convs, xs)]
+        return torch.stack(outs, dim=-1).reshape(b, t, c)

@@ -1,0 +1,412 @@
+"""The four LSTM recurrence kernels (``csrc/lstm.cu``), their plain PyTorch
+versions, and the two ``autograd.Function``s that wrap them.
+
+Kernel <-> TPU kernel it replaces (``paule_tpu/ops/pallas_lstm.py``):
+
+* B1 :func:`lstm_fwd`         <- ``_lstm_core_fwd_impl`` (``:214``)
+* B2 :func:`lstm_bwd`         <- ``_lstm_core_bwd`` (``:264``)
+* B3 :func:`lstm_stack2_fwd`  <- ``_stack2_fwd_impl`` (``:554``)
+* B4 :func:`lstm_stack2_bwd`  <- ``_stack2_bwd`` (``:601``)
+
+Each wrapper takes the plain version only for tensors on the CPU.  For a
+CUDA tensor it launches its kernel (float32, contiguous, one device) or
+raises; nothing falls back.  Each wrapper counts its launches in a plain
+integer attribute, ``<wrapper>.launches``, so a run can show that it went
+through the kernel.  The kernel library is built with ``nvcc`` on first use
+into ``paule_tpu_torch/_build/`` and rebuilt when the source changes.
+
+What bounds the kernels and what their design does about it is written at
+the top of ``csrc/lstm.cu``.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "lstm.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "liblstm.so")
+_STAMP = LIB_PATH + ".sha256"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the LSTM kernels are built with "
+                           "the CUDA toolkit (set CUDA_HOME)")
+    return path
+
+
+def build(verbose=False):
+    """Compile ``csrc/lstm.cu`` into ``_build/liblstm.so`` unless a library
+    built from the same source exists; returns its path."""
+    with open(SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()
+    try:
+        with open(_STAMP) as fh:
+            if fh.read().strip() == digest and os.path.exists(LIB_PATH):
+                return LIB_PATH
+    except OSError:
+        pass
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, SOURCE]
+    result = subprocess.run(cmd, capture_output=True, text=True)
+    if result.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{result.stderr}\n{result.stdout}")
+    if verbose:
+        print(result.stderr, end="")
+    os.replace(tmp, LIB_PATH)
+    with open(_STAMP, "w") as fh:
+        fh.write(digest)
+    return LIB_PATH
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            p, i = ctypes.c_void_p, ctypes.c_int
+            for name, n_ptr in (("paule_lstm_fwd", 6), ("paule_lstm_bwd", 7),
+                                ("paule_lstm_stack2_fwd", 12),
+                                ("paule_lstm_stack2_bwd", 11)):
+                fn = getattr(lib, name)
+                fn.argtypes = [p] * n_ptr + [i, i, i, p]
+                fn.restype = i
+            _lib = lib
+    return _lib
+
+
+def _check(name, t, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernels take float32, got "
+                        f"{t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(fn_name, device, args, dims):
+    lib = _load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*[a.data_ptr() for a in args], *dims,
+                                   stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
+
+
+def _split(x, hidden):
+    return (x[..., :hidden], x[..., hidden:2 * hidden],
+            x[..., 2 * hidden:3 * hidden], x[..., 3 * hidden:])
+
+
+def activate(pre, hidden):
+    """(i, f, g, o) pre-activations -> sigmoid/tanh activations, (..., 4H)."""
+    i, f, g, o = _split(pre, hidden)
+    return torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o)], dim=-1)
+
+
+def _gate_grads(acts, c_prev, dh, dc_in, hidden):
+    """One reverse cell step: -> (dgates (B, 4H), dc carried to t-1)."""
+    gi, gf, gg, go = _split(acts, hidden)
+    tc = torch.tanh(gf * c_prev + gi * gg)
+    d_o = dh * tc
+    dc = dc_in + dh * go * (1.0 - tc * tc)
+    dgates = torch.cat([dc * gg * gi * (1.0 - gi),
+                        dc * c_prev * gf * (1.0 - gf),
+                        dc * gi * (1.0 - gg * gg),
+                        d_o * go * (1.0 - go)], dim=-1)
+    return dgates, dc * gf
+
+
+# ---------------------------------------------------------------------------
+# B1: forward recurrence
+# ---------------------------------------------------------------------------
+
+def lstm_fwd_plain(gates_x, w_hh, h0, c0):
+    """``gates_x (T, B, 4H)`` -> ``hs, cs (T, B, H)``, one step at a time."""
+    hidden = w_hh.shape[0]
+    h, c = h0, c0
+    hs, cs = [], []
+    for t in range(gates_x.shape[0]):
+        gi, gf, gg, go = _split(activate(gates_x[t] + h @ w_hh, hidden),
+                                hidden)
+        c = gf * c + gi * gg
+        h = go * torch.tanh(c)
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+def lstm_fwd(gates_x, w_hh, h0, c0):
+    """B1.  Same contract as :func:`lstm_fwd_plain`."""
+    if gates_x.device.type == "cpu":
+        return lstm_fwd_plain(gates_x, w_hh, h0, c0)
+    seq, batch, four_h = gates_x.shape
+    hidden = four_h // 4
+    dev = gates_x.device
+    _check("gates_x", gates_x, (seq, batch, 4 * hidden), dev)
+    _check("w_hh", w_hh, (hidden, 4 * hidden), dev)
+    _check("h0", h0, (batch, hidden), dev)
+    _check("c0", c0, (batch, hidden), dev)
+    if seq < 1:
+        raise ValueError("empty sequence")
+    w_t = w_hh.t().contiguous()
+    hs = torch.empty((seq, batch, hidden), device=dev, dtype=torch.float32)
+    cs = torch.empty_like(hs)
+    _launch("paule_lstm_fwd", dev, (gates_x, w_t, h0, c0, hs, cs),
+            (seq, batch, hidden))
+    lstm_fwd.launches += 1
+    return hs, cs
+
+
+lstm_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B2: reverse recurrence over precomputed activations
+# ---------------------------------------------------------------------------
+
+def lstm_bwd_plain(acts, cs_prev, ghs, w_hh):
+    """Reverse recurrence carrying ``(dh, dc)``: activated gates
+    ``acts (T, B, 4H)``, ``cs_prev, ghs (T, B, H)`` -> ``dgates (T, B, 4H),
+    dh0, dc0 (B, H)``."""
+    hidden = w_hh.shape[0]
+    dh_rec = torch.zeros_like(ghs[0])
+    dc = torch.zeros_like(ghs[0])
+    dgates = torch.empty_like(acts)
+    for t in range(acts.shape[0] - 1, -1, -1):
+        dgates[t], dc = _gate_grads(acts[t], cs_prev[t], ghs[t] + dh_rec, dc,
+                                    hidden)
+        dh_rec = dgates[t] @ w_hh.t()
+    return dgates, dh_rec, dc
+
+
+def lstm_bwd(acts, cs_prev, ghs, w_hh):
+    """B2.  Same contract as :func:`lstm_bwd_plain`."""
+    if acts.device.type == "cpu":
+        return lstm_bwd_plain(acts, cs_prev, ghs, w_hh)
+    seq, batch, four_h = acts.shape
+    hidden = four_h // 4
+    dev = acts.device
+    _check("acts", acts, (seq, batch, 4 * hidden), dev)
+    _check("cs_prev", cs_prev, (seq, batch, hidden), dev)
+    _check("ghs", ghs, (seq, batch, hidden), dev)
+    _check("w_hh", w_hh, (hidden, 4 * hidden), dev)
+    if seq < 1:
+        raise ValueError("empty sequence")
+    dgates = torch.empty_like(acts)
+    dh0 = torch.empty((batch, hidden), device=dev, dtype=torch.float32)
+    dc0 = torch.empty_like(dh0)
+    _launch("paule_lstm_bwd", dev, (acts, cs_prev, ghs, w_hh, dgates, dh0,
+                                    dc0), (seq, batch, hidden))
+    lstm_bwd.launches += 1
+    return dgates, dh0, dc0
+
+
+lstm_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B3: two equal-H layers, forward
+# ---------------------------------------------------------------------------
+
+def lstm_stack2_fwd_plain(gates1, w_hh1, w2, b2, h01, c01, h02, c02):
+    """``gates1 (T, B, 4H)``, ``w2 = [w_ih2; w_hh2] (2H, 4H)`` ->
+    ``hs1, cs1, hs2, cs2 (T, B, H)``."""
+    hidden = w_hh1.shape[0]
+    h1, c1, h2, c2 = h01, c01, h02, c02
+    out = ([], [], [], [])
+    for t in range(gates1.shape[0]):
+        gi, gf, gg, go = _split(activate(gates1[t] + h1 @ w_hh1, hidden),
+                                hidden)
+        c1 = gf * c1 + gi * gg
+        h1 = go * torch.tanh(c1)
+        qi, qf, qg, qo = _split(
+            activate(b2 + torch.cat([h1, h2], dim=-1) @ w2, hidden), hidden)
+        c2 = qf * c2 + qi * qg
+        h2 = qo * torch.tanh(c2)
+        for lst, v in zip(out, (h1, c1, h2, c2)):
+            lst.append(v)
+    return tuple(torch.stack(v) for v in out)
+
+
+def lstm_stack2_fwd(gates1, w_hh1, w2, b2, h01, c01, h02, c02):
+    """B3.  Same contract as :func:`lstm_stack2_fwd_plain`."""
+    if gates1.device.type == "cpu":
+        return lstm_stack2_fwd_plain(gates1, w_hh1, w2, b2, h01, c01, h02,
+                                     c02)
+    seq, batch, four_h = gates1.shape
+    hidden = four_h // 4
+    dev = gates1.device
+    _check("gates1", gates1, (seq, batch, 4 * hidden), dev)
+    _check("w_hh1", w_hh1, (hidden, 4 * hidden), dev)
+    _check("w2", w2, (2 * hidden, 4 * hidden), dev)
+    _check("b2", b2, (4 * hidden,), dev)
+    for name, t in (("h01", h01), ("c01", c01), ("h02", h02), ("c02", c02)):
+        _check(name, t, (batch, hidden), dev)
+    if seq < 1:
+        raise ValueError("empty sequence")
+    w1_t = w_hh1.t().contiguous()
+    w2_t = w2.t().contiguous()
+    outs = [torch.empty((seq, batch, hidden), device=dev,
+                        dtype=torch.float32) for _ in range(4)]
+    _launch("paule_lstm_stack2_fwd", dev,
+            (gates1, w1_t, w2_t, b2, h01, c01, h02, c02, *outs),
+            (seq, batch, hidden))
+    lstm_stack2_fwd.launches += 1
+    return tuple(outs)
+
+
+lstm_stack2_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B4: two equal-H layers, reverse
+# ---------------------------------------------------------------------------
+
+def lstm_stack2_bwd_plain(acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2):
+    """Fused reverse recurrence of both layers; only ``hs2`` carries an
+    incoming cotangent.  -> ``dgates1, dgates2 (T, B, 4H)``."""
+    hidden = w_hh1.shape[0]
+    zero = torch.zeros_like(ghs2[0])
+    dh1_rec, dh2_rec, dc1, dc2 = zero, zero, zero, zero
+    dgates1 = torch.empty_like(acts1)
+    dgates2 = torch.empty_like(acts2)
+    for t in range(acts1.shape[0] - 1, -1, -1):
+        dgates2[t], dc2 = _gate_grads(acts2[t], cs2_prev[t],
+                                      ghs2[t] + dh2_rec, dc2, hidden)
+        dcat = dgates2[t] @ w2.t()
+        dh2_rec = dcat[:, hidden:]
+        dgates1[t], dc1 = _gate_grads(acts1[t], cs1_prev[t],
+                                      dcat[:, :hidden] + dh1_rec, dc1, hidden)
+        dh1_rec = dgates1[t] @ w_hh1.t()
+    return dgates1, dgates2
+
+
+def lstm_stack2_bwd(acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2):
+    """B4.  Same contract as :func:`lstm_stack2_bwd_plain`."""
+    if acts1.device.type == "cpu":
+        return lstm_stack2_bwd_plain(acts1, acts2, cs1_prev, cs2_prev, ghs2,
+                                     w_hh1, w2)
+    seq, batch, four_h = acts1.shape
+    hidden = four_h // 4
+    dev = acts1.device
+    _check("acts1", acts1, (seq, batch, 4 * hidden), dev)
+    _check("acts2", acts2, (seq, batch, 4 * hidden), dev)
+    for name, t in (("cs1_prev", cs1_prev), ("cs2_prev", cs2_prev),
+                    ("ghs2", ghs2)):
+        _check(name, t, (seq, batch, hidden), dev)
+    _check("w_hh1", w_hh1, (hidden, 4 * hidden), dev)
+    _check("w2", w2, (2 * hidden, 4 * hidden), dev)
+    if seq < 1:
+        raise ValueError("empty sequence")
+    dc1 = torch.empty((batch, hidden), device=dev, dtype=torch.float32)
+    dc2 = torch.empty_like(dc1)
+    dgates1 = torch.empty_like(acts1)
+    dgates2 = torch.empty_like(acts2)
+    _launch("paule_lstm_stack2_bwd", dev,
+            (acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2, dc1, dc2,
+             dgates1, dgates2), (seq, batch, hidden))
+    lstm_stack2_bwd.launches += 1
+    return dgates1, dgates2
+
+
+lstm_stack2_bwd.launches = 0
+
+KERNELS = (lstm_fwd, lstm_bwd, lstm_stack2_fwd, lstm_stack2_bwd)
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd contracts (the JAX custom_vjp rules of pallas_lstm.py)
+# ---------------------------------------------------------------------------
+
+def _shift(first, seq):
+    """``[first, seq[:-1]]`` along time: the previous step's states."""
+    return torch.cat([first[None], seq[:-1]], dim=0)
+
+
+class LSTMCore(torch.autograd.Function):
+    """``(gates_x, w_hh, h0, c0) -> (hs, cs)``.  Gradients through ``hs``
+    are exact; the cotangent of ``cs`` is ignored (``lstm_core``,
+    ``pallas_lstm.py:203-210``)."""
+
+    @staticmethod
+    def forward(ctx, gates_x, w_hh, h0, c0):
+        hs, cs = lstm_fwd(gates_x, w_hh, h0, c0)
+        ctx.save_for_backward(gates_x, w_hh, h0, c0, hs, cs)
+        return hs, cs
+
+    @staticmethod
+    def backward(ctx, ghs, _gcs):
+        gates_x, w_hh, h0, c0, hs, cs = ctx.saved_tensors
+        hidden = w_hh.shape[0]
+        hs_prev = _shift(h0, hs)
+        cs_prev = _shift(c0, cs)
+        acts = activate(gates_x + hs_prev @ w_hh, hidden)
+        dgates, dh0, dc0 = lstm_bwd(acts, cs_prev, ghs.contiguous(), w_hh)
+        dw_hh = (torch.einsum("tbh,tbg->hg", hs_prev, dgates)
+                 if ctx.needs_input_grad[1] else None)
+        return dgates, dw_hh, dh0, dc0
+
+
+class LSTMStack2(torch.autograd.Function):
+    """``(gates1, w_hh1, w2, b2, h01, c01, h02, c02) -> (hs1, cs1, hs2,
+    cs2)``.  Gradients flow only through ``hs2``; the initial-carry grads
+    are zeros (``lstm_stack2_core``, ``pallas_lstm.py:540-551, 672-674``)."""
+
+    @staticmethod
+    def forward(ctx, gates1, w_hh1, w2, b2, h01, c01, h02, c02):
+        hs1, cs1, hs2, cs2 = lstm_stack2_fwd(gates1, w_hh1, w2, b2, h01, c01,
+                                             h02, c02)
+        ctx.save_for_backward(gates1, w_hh1, w2, b2, hs1, cs1, hs2, cs2,
+                              h01, c01, h02, c02)
+        return hs1, cs1, hs2, cs2
+
+    @staticmethod
+    def backward(ctx, _ghs1, _gcs1, ghs2, _gcs2):
+        (gates1, w_hh1, w2, b2, hs1, cs1, hs2, cs2,
+         h01, c01, h02, c02) = ctx.saved_tensors
+        hidden = w_hh1.shape[0]
+        hs1_prev = _shift(h01, hs1)
+        cat2 = torch.cat([hs1, _shift(h02, hs2)], dim=-1)
+        acts1 = activate(gates1 + hs1_prev @ w_hh1, hidden)
+        acts2 = activate(b2 + cat2 @ w2, hidden)
+        dgates1, dgates2 = lstm_stack2_bwd(
+            acts1, acts2, _shift(c01, cs1), _shift(c02, cs2),
+            ghs2.contiguous(), w_hh1, w2)
+        need = ctx.needs_input_grad
+        dw_hh1 = (torch.einsum("tbh,tbg->hg", hs1_prev, dgates1)
+                  if need[1] else None)
+        dw2 = torch.einsum("tbh,tbg->hg", cat2, dgates2) if need[2] else None
+        db2 = dgates2.sum(dim=(0, 1)) if need[3] else None
+        zc = torch.zeros_like(h01)
+        return dgates1, dw_hh1, dw2, db2, zc, zc, zc, zc

@@ -1,0 +1,138 @@
+"""The planning engine: gradient descent on a cp trajectory through the
+learned forward model and embedder (counterpart of
+``paule_tpu/planning/engine.py``).
+
+A segment of ``n_steps`` runs eagerly: forward, backward, Adam, then the
+constraint projections.  Per-step logs stay on the device until the caller
+fetches them once per segment.  As in the JAX package, the snapshot logged
+at a step is the trajectory before that step's update, and logs are kept
+for the last step of every ``log_every`` steps.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops import losses as L
+
+# loss weights (paule_tpu/planning/engine.py:43-50)
+MEL_WEIGHT = 5.0
+VELOCITY_WEIGHT = 80.0
+JERK_WEIGHT = 400.0
+SEMANTIC_WEIGHT = 10.0
+LOCAL_LINEAR_WEIGHT = 100_000.0
+
+OBJECTIVES = ("acoustic", "semvec", "acoustic_semvec")
+
+
+class SubLosses(NamedTuple):
+    """Weighted sub-losses of one step; inactive terms are zero."""
+    total: torch.Tensor
+    mel_loss: torch.Tensor
+    semvec_loss: torch.Tensor
+    velocity_loss: torch.Tensor
+    jerk_loss: torch.Tensor
+    local_linear_loss: torch.Tensor
+
+
+class Models(NamedTuple):
+    pred_model: torch.nn.Module
+    embedder: torch.nn.Module
+
+
+class Constraints(NamedTuple):
+    """Post-update trajectory projections."""
+    clamp: float = 1.05
+    smiling: bool = False
+    past_len: int = 0  # leading frames pinned to their initial value
+
+
+def criterion(models, xx, target_mel, target_semvec, *, objective):
+    """Weighted planning loss of the ``(1, T, 30)`` trajectory ``xx``.
+    -> ``(total, (SubLosses, pred_mel, pred_semvec or None))``."""
+    if objective not in ("acoustic", "acoustic_semvec"):
+        raise NotImplementedError(
+            f"objective={objective!r} is not ported yet (ROADMAP.md, "
+            "'Modules to port', item 9)")
+    pred_mel = models.pred_model(xx)
+    mel_w = MEL_WEIGHT * L.rmse(pred_mel, target_mel)
+    vel_loss, jerk_loss = L.velocity_jerk_loss(xx, loss=L.mse)
+    vel_w = VELOCITY_WEIGHT * vel_loss
+    jerk_w = JERK_WEIGHT * jerk_loss
+    ll_w = LOCAL_LINEAR_WEIGHT * L.local_linear_loss(xx)
+    total = vel_w + jerk_w + ll_w + mel_w
+    sem_w = torch.zeros_like(total)
+    pred_semvec = None
+    if objective == "acoustic_semvec":
+        pred_semvec = models.embedder(pred_mel)
+        sem_w = SEMANTIC_WEIGHT * L.rmse(pred_semvec, target_semvec)
+        total = total + sem_w
+    subs = SubLosses(total, mel_w, sem_w, vel_w, jerk_w, ll_w)
+    return total, (subs, pred_mel, pred_semvec)
+
+
+def apply_constraints(xx, xx_init, cons: Constraints):
+    """Clamp to +-``cons.clamp``, pin LP=-1 and HY=1 when smiling, and
+    restore the first ``past_len`` frames; in place, without grad."""
+    with torch.no_grad():
+        xx.clamp_(-cons.clamp, cons.clamp)
+        if cons.smiling:
+            xx[..., 4] = -1.0
+            xx[..., 1] = 1.0
+        if cons.past_len > 0:
+            xx[:, :cons.past_len, :] = xx_init[:, :cons.past_len, :]
+
+
+def make_optimizer(xx, lr):
+    """Adam on the trajectory leaf, with ``optax.adam(lr)``'s settings."""
+    return torch.optim.Adam([xx], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def plan_segment(models, xx, optimizer, target_mel, target_semvec, *,
+                 n_steps, objective, log_semantics, constraints,
+                 log_every=None):
+    """Run ``n_steps`` planning updates on the leaf ``xx`` in place.
+
+    Returns the logs of the logged steps (indices ``k-1, 2k-1, ...`` for
+    ``log_every=k``; every step for ``None``) as device tensors:
+    ``sub_losses`` (a :class:`SubLosses` of ``(L,)`` tensors), ``xx_pre``
+    ``(L, 1, T, 30)``, ``pred_mel``, ``pred_semvec`` (``None`` when no
+    semantics are logged), ``grads``, ``grad_max`` and ``grad_min``."""
+    log_every = log_every or 1
+    n_logged = n_steps // log_every
+    xx_init = xx.detach().clone()
+    rec = {k: [] for k in ("subs", "xx_pre", "pred_mel", "pred_semvec",
+                           "grads")}
+    for step in range(n_steps):
+        optimizer.zero_grad(set_to_none=True)
+        total, (subs, pred_mel, pred_semvec) = criterion(
+            models, xx, target_mel, target_semvec, objective=objective)
+        total.backward()
+        if (step + 1) % log_every == 0 and step < n_logged * log_every:
+            rec["subs"].append(torch.stack([s.detach() for s in subs]))
+            rec["xx_pre"].append(xx.detach().clone())
+            rec["pred_mel"].append(pred_mel.detach())
+            if pred_semvec is not None:
+                rec["pred_semvec"].append(pred_semvec.detach())
+            rec["grads"].append(xx.grad.detach().clone())
+        optimizer.step()
+        apply_constraints(xx, xx_init, constraints)
+
+    subs = torch.stack(rec["subs"], dim=1)  # (n_fields, L)
+    grads = torch.stack(rec["grads"])
+    pred_mel = torch.stack(rec["pred_mel"])  # (L, 1, T_mel, 60)
+    if rec["pred_semvec"]:
+        pred_semvec = torch.stack(rec["pred_semvec"])
+    elif log_semantics:
+        # the embedder only logs here: run it once on the logged mels
+        with torch.no_grad():
+            flat = pred_mel.reshape((-1,) + pred_mel.shape[2:])
+            pred_semvec = models.embedder(flat).reshape(
+                pred_mel.shape[:2] + (-1,))
+    else:
+        pred_semvec = None
+    return {"sub_losses": SubLosses(*subs), "xx_pre": torch.stack(
+                rec["xx_pre"]), "pred_mel": pred_mel,
+            "pred_semvec": pred_semvec, "grads": grads,
+            "grad_max": grads.flatten(1).amax(dim=1),
+            "grad_min": grads.flatten(1).amin(dim=1)}
