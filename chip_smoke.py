@@ -2,24 +2,35 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-1. prints the card's name and power limit, and builds the LSTM kernels
-   from ``paule_tpu_torch/csrc/lstm.cu``;
-2. holds each kernel (B1-B4) against its plain PyTorch version on the card
-   at the shapes of the planning path, and times the kernel, the plain
-   version and ``torch.nn.LSTM`` (cuDNN, a yardstick the port never calls);
-3. drives ``paule_tpu_torch.api.Paule.plan_resynth`` once at full width
-   (H=720, the in-repo release weights) on a synthesised target, checks its
-   losses, and checks that every kernel was launched during that run;
-4. prints one JSON line with the kernels' numbers and, last, one JSON line
+1. prints the card's name and power limit, and builds the kernels from
+   ``paule_tpu_torch/csrc/lstm.cu`` and ``csrc/ceiling_probes.cu`` (two
+   ``nvcc`` processes started together);
+2. holds each LSTM kernel (B1-B4) against its plain PyTorch version on the
+   card at the shapes of the planning and training paths (B1/B2 at
+   T=402 and T=201 with B=8 for the forward and inverse models' training
+   steps), and times the
+   kernel, the plain version and ``torch.nn.LSTM`` (cuDNN, a yardstick the
+   port never calls);
+3. runs the ceiling-probe entry point (``paule_tpu_torch.tools.
+   kernel_ceiling_probes``): the four probe kernels against their plain
+   versions at T=1024, B=1, H=720, with µs per step beside B1/B2;
+4. drives ``paule_tpu_torch.api.Paule.plan_resynth`` at full width (H=720,
+   the in-repo release weights) on a synthesised target: a short plan
+   without continue-learning, then the default call with continue-learning
+   of both models at the reference budget (only ``n_outer`` cut); checks
+   the losses and that every kernel of each path launched during its run;
+5. holds short plans on the card (float32) against the CPU (float64),
+   without and with continue-learning;
+6. prints one JSON line with the kernels' numbers and, last, one JSON line
    with the device.
 
 Exits non-zero on any failure, and when no CUDA device is present.
 """
 
 import json
-import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -28,44 +39,34 @@ from paule_tpu_torch import synth
 from paule_tpu_torch.api import Paule
 from paule_tpu_torch.ops import lstm_kernels as K
 from paule_tpu_torch.ops.normalize import inv_normalize_cp
+from paule_tpu_torch.tools import kernel_ceiling_probes as P
+from paule_tpu_torch.tools.timing import (bound_ms, cuda_ms, cudnn_lstm_ms,
+                                          lstm_bwd_bound, lstm_fwd_bound)
 
 H = 720
 #: tolerances of a kernel against its plain version in float32: the forward
 #: outputs in absolute terms; gradients (dgates, input and weight grads) as
 #: the relative Frobenius error, since ~400 steps of f32 recurrence summed
 #: in another order drift by a few ulps per step
-FWD_ATOL = 1e-4
-GRAD_RTOL = 1e-3
+FWD_ATOL = P.FWD_ATOL
+GRAD_RTOL = P.GRAD_RTOL
 #: a short plan in float32 on the card against float64 on the CPU: the
-#: losses of three Adam steps, relative
+#: losses (planned, produced and, with continue-learning, the models'
+#: training losses), relative
 PLAN_RTOL = 1e-3
-#: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-#: float32 FLOP/s outside the tensor cores (the kernels use FMA units)
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
 
-SOURCE = "paule_tpu_torch/csrc/lstm.cu"
+LSTM_SOURCE = "paule_tpu_torch/csrc/lstm.cu"
+PROBE_SOURCE = "paule_tpu_torch/csrc/ceiling_probes.cu"
 REPLACES = {
     "lstm_fwd": "paule_tpu/ops/pallas_lstm.py:214",
     "lstm_bwd": "paule_tpu/ops/pallas_lstm.py:264",
     "lstm_stack2_fwd": "paule_tpu/ops/pallas_lstm.py:554",
     "lstm_stack2_bwd": "paule_tpu/ops/pallas_lstm.py:601",
+    "fwd_wide": "tools/kernel_ceiling_probes.py:12",
+    "fwd_split": "tools/kernel_ceiling_probes.py:44",
+    "bwd_wide": "tools/kernel_ceiling_probes.py:111",
+    "bwd_split": "tools/kernel_ceiling_probes.py:162",
 }
-
-
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` in ms over ``reps`` calls, after one
-    warm-up call (CUDA events around the whole run)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def rel_err(a, b):
@@ -74,12 +75,6 @@ def rel_err(a, b):
 
 def max_abs(pairs):
     return max(float((a - b).abs().max()) for a, b in pairs)
-
-
-def bound_ms(n_bytes, n_flops):
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_flops / PEAK_F32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _uniform(gen, shape, bound, dev):
@@ -92,19 +87,13 @@ def _normal(gen, shape, scale, dev):
             * scale).to(dev)
 
 
-def cudnn_lstm_ms(n_in, n_layers, seq, batch, dev, backward):
-    """``torch.nn.LSTM`` (cuDNN) at the kernel's shape: forward, or the
-    backward of a retained graph."""
-    lstm = torch.nn.LSTM(n_in, H, num_layers=n_layers).to(dev)
-    x = torch.randn(seq, batch, n_in, device=dev, requires_grad=True)
-    if not backward:
-        with torch.no_grad():
-            return cuda_ms(lambda: lstm(x), 20)
-    out, _ = lstm(x)
-    g = torch.randn_like(out)
-    params = [x, *lstm.parameters()]
-    return cuda_ms(lambda: torch.autograd.grad(out, params, g,
-                                               retain_graph=True), 20)
+def build_all():
+    """Both kernel libraries, one ``nvcc`` each, started together."""
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(lib.build, verbose=True)
+                  for lib in (K.LIBRARY, P.LIBRARY)]
+        for b in builds:
+            b.result()
 
 
 def check_core(dev, gen, seq, batch):
@@ -138,25 +127,20 @@ def check_core(dev, gen, seq, batch):
     grads_p = torch.autograd.grad((hs_pl * gout).sum(), leaves_p)
     grad_rel = max(rel_err(a, b) for a, b in zip(grads_k, grads_p))
 
-    f32 = 4
     out = {
         "lstm_fwd": dict(
             max_abs_err=fwd_err, rel_err=None,
             ms=cuda_ms(lambda: K.lstm_fwd(gx, w, h0, c0), 20),
             plain_ms=cuda_ms(lambda: K.lstm_fwd_plain(gx, w, h0, c0), 3),
-            library_ms=cudnn_lstm_ms(30, 1, seq, batch, dev, False),
-            bound=bound_ms(f32 * (seq * batch * 6 * H + 4 * H * H
-                                  + 2 * batch * H),
-                           seq * batch * (8 * H * H + 13 * H))),
+            library_ms=cudnn_lstm_ms(30, H, 1, seq, batch, dev, False),
+            bound=lstm_fwd_bound(seq, batch, H)),
         "lstm_bwd": dict(
             max_abs_err=bwd_err, rel_err=max(bwd_rel, grad_rel),
             ms=cuda_ms(lambda: K.lstm_bwd(acts, cs_prev, gout, w), 20),
             plain_ms=cuda_ms(lambda: K.lstm_bwd_plain(acts, cs_prev, gout,
                                                       w), 3),
-            library_ms=cudnn_lstm_ms(30, 1, seq, batch, dev, True),
-            bound=bound_ms(f32 * (seq * batch * 10 * H + 4 * H * H
-                                  + 2 * batch * H),
-                           seq * batch * (8 * H * H + 20 * H))),
+            library_ms=cudnn_lstm_ms(30, H, 1, seq, batch, dev, True),
+            bound=lstm_bwd_bound(seq, batch, H)),
     }
     print(f"  B1 lstm_fwd  T={seq} B={batch}: fwd max|err| {fwd_err:.3e} "
           f"(tol {FWD_ATOL})")
@@ -207,7 +191,7 @@ def check_stack2(dev, gen, seq, batch):
                        20),
             plain_ms=cuda_ms(lambda: K.lstm_stack2_fwd_plain(
                 g1, w1, w2, b2, z, z, z, z), 3),
-            library_ms=cudnn_lstm_ms(60, 2, seq, batch, dev, False),
+            library_ms=cudnn_lstm_ms(60, H, 2, seq, batch, dev, False),
             bound=bound_ms(f32 * (seq * batch * 8 * H + 12 * H * H + 4 * H
                                   + 4 * batch * H),
                            seq * batch * (24 * H * H + 26 * H))),
@@ -215,7 +199,7 @@ def check_stack2(dev, gen, seq, batch):
             max_abs_err=bwd_err, rel_err=max(bwd_rel, grad_rel),
             ms=cuda_ms(lambda: K.lstm_stack2_bwd(*args), 20),
             plain_ms=cuda_ms(lambda: K.lstm_stack2_bwd_plain(*args), 3),
-            library_ms=cudnn_lstm_ms(60, 2, seq, batch, dev, True),
+            library_ms=cudnn_lstm_ms(60, H, 2, seq, batch, dev, True),
             bound=bound_ms(f32 * (seq * batch * 19 * H + 12 * H * H),
                            seq * batch * (24 * H * H + 40 * H))),
     }
@@ -228,6 +212,39 @@ def check_stack2(dev, gen, seq, batch):
     return ok, out
 
 
+def print_times(label, res):
+    for name, r in res.items():
+        print(f"  {name}{label}: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, cuDNN {r['library_ms']:.3f} ms, "
+              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+
+
+def merge_errors(name, results, *others):
+    """The largest error of kernel ``name`` over all checked shapes."""
+    for key in ("max_abs_err", "rel_err"):
+        vals = [r[name][key] for r in (results, *others)
+                if r[name][key] is not None]
+        results[name][key] = max(vals) if vals else None
+
+
+def run_probes():
+    """The ceiling-probe entry point on the card; its launches are counted
+    from 0.  -> (ok, result, launches)."""
+    P.reset_launch_counts()
+    result = P.run(device="cuda")
+    launches = {k.__name__: k.launches for k in P.KERNELS}
+    P.report(result)
+    print(f"  launches during the probe run: {launches}")
+    ok = P.within_tolerance(result["errors"])
+    if not ok:
+        print(f"probes: error above tolerance (forward {FWD_ATOL} absolute, "
+              f"gradients {GRAD_RTOL} relative)", file=sys.stderr)
+    if not all(launches.values()):
+        print("probes: a kernel was not launched", file=sys.stderr)
+        ok = False
+    return ok, result, launches
+
+
 def synth_target(n_frames, seed):
     """``(sig, sr)`` synthesised by the port from a seeded smooth cp
     trajectory of ``n_frames`` frames."""
@@ -236,77 +253,155 @@ def synth_target(n_frames, seed):
     return synth.speak(inv_normalize_cp(cp))
 
 
-def drive_main_path():
-    """``Paule.plan_resynth`` at full width on the card; checks the losses
-    and that every kernel launched during the run.  -> (ok, launches)."""
-    # ~1 s of audio: 402 frames of 2.5 ms -> 201 mel frames; the forward
-    # model then runs at T=402
-    target = synth_target(402, seed=0)
+def timed_plan(paule, kw, label):
+    """One ``plan_resynth`` call with the launch counts set to 0 just
+    before it; -> (results, launches, timings)."""
+    K.reset_launch_counts()
     t0 = time.perf_counter()
-    paule = Paule(seed=7)
-    print(f"Paule() on {paule.device}: {time.perf_counter() - t0:.1f} s")
+    r = paule.plan_resynth(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    t = paule.last_planning_timings
+    print(f"{label}: {wall:.3f} s; " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in t.items()))
+    return r, launches, t
 
+
+def check_losses(r, n_logged, n_frames, what):
+    ok = True
+    losses = (r.planned_loss_steps + r.prod_loss_steps
+              + r.pred_semvec_loss_steps + r.prod_semvec_loss_steps)
+    if len(r.planned_loss_steps) != n_logged or not np.isfinite(
+            losses).all():
+        print(f"{what}: missing or non-finite losses", file=sys.stderr)
+        ok = False
+    if not r.planned_loss_steps[-1] < r.planned_loss_steps[0]:
+        print(f"{what}: planned loss did not fall", file=sys.stderr)
+        ok = False
+    if r.planned_cp.shape != (n_frames, 30) or not np.isfinite(
+            r.planned_cp).all():
+        print(f"{what}: bad planned_cp", file=sys.stderr)
+        ok = False
+    return ok
+
+
+def drive_planning(paule, target):
+    """The planning path of the first slice: ``plan_resynth`` without
+    continue-learning, 2 x 8 inner steps; checks the losses and that every
+    kernel launched during the run.  -> ok."""
     kw = dict(target_acoustic=target, initialize_from="acoustic",
               objective="acoustic_semvec", n_outer=2, n_inner=8, log_ii=4,
               continue_learning=False, verbose=False)
     # the first call pays the CUDA libraries' set-up; the second is the run
     # whose launches and phase times are reported
-    for run in ("first", "second"):
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        r = paule.plan_resynth(**kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        timings = paule.last_planning_timings
-        per_step = timings["planning"] / 16 * 1e3
-        print(f"plan_resynth(acoustic_semvec, n_outer=2, n_inner=8, "
-              f"log_ii=4), {run} call: {wall:.3f} s; planning "
-              f"{timings['planning']:.3f} s ({per_step:.2f} ms per inner "
-              f"step), synthesis {timings['synthesis']:.3f} s, metrics "
-              f"{timings['metrics']:.3f} s")
-    launches = {k.__name__: k.launches for k in K.KERNELS}
-    paule.close()
-
+    timed_plan(paule, kw, "plan_resynth(continue_learning=False, n_outer=2, "
+               "n_inner=8, log_ii=4), first call")
+    r, launches, t = timed_plan(paule, kw, "  second call")
+    print(f"  planning {t['planning'] / 16 * 1e3:.2f} ms per inner step")
     print(f"  planned_loss_steps {r.planned_loss_steps}")
     print(f"  prod_loss_steps {r.prod_loss_steps}")
-    print(f"  prod_semvec_loss_steps {r.prod_semvec_loss_steps}")
     print(f"  launches during the run: {launches}")
-    losses = (r.planned_loss_steps + r.prod_loss_steps
-              + r.pred_semvec_loss_steps + r.prod_semvec_loss_steps)
-    ok = True
-    if len(r.planned_loss_steps) != 4 or not np.isfinite(losses).all():
-        print("main path: missing or non-finite losses", file=sys.stderr)
-        ok = False
-    if not r.planned_loss_steps[-1] < r.planned_loss_steps[0]:
-        print("main path: planned loss did not fall", file=sys.stderr)
-        ok = False
-    if r.planned_cp.shape != (402, 30) or not np.isfinite(
-            r.planned_cp).all():
-        print("main path: bad planned_cp", file=sys.stderr)
-        ok = False
+    ok = check_losses(r, 4, 402, "planning path")
     if not all(launches.values()):
-        print("main path: a kernel was not launched", file=sys.stderr)
+        print("planning path: a kernel was not launched", file=sys.stderr)
+        ok = False
+    return ok
+
+
+def drive_continue_learning(paule, target, step_ms):
+    """The main path: the default ``plan_resynth`` with continue-learning
+    of the predictive and inverse models at the reference budget
+    (``n_inner=24, log_ii=1, n_batches=3, batch_size=8, n_epochs=10``), cut
+    to ``n_outer=2``.  Called twice; the warm call's launches and phase
+    split are reported.  The same budget without continue-learning then
+    shows that B1/B2 launch once more per training step.  ``step_ms``:
+    B1 + B2 ms at each model's training shape (``"pred"``, ``"inv"``),
+    timed apart, to give the kernels' share of the phase.  -> (ok,
+    launches)."""
+    n_outer, n_inner = 2, 24
+    kw = dict(target_acoustic=target, initialize_from="acoustic",
+              objective="acoustic_semvec", n_outer=n_outer, n_inner=n_inner,
+              log_ii=1, continue_learning=True, continue_learning_inv=True,
+              verbose=False)
+    label = (f"plan_resynth(continue_learning=True, continue_learning_inv="
+             f"True, n_outer={n_outer}, n_inner={n_inner}, log_ii=1)")
+    timed_plan(paule, kw, label + ", first call")
+    pred0, inv0 = paule.pred_trainer.steps, paule.inv_trainer.steps
+    r, launches, t = timed_plan(paule, kw, "  second call")
+    pred_steps = paule.pred_trainer.steps - pred0
+    inv_steps = paule.inv_trainer.steps - inv0
+    steps = pred_steps + inv_steps
+    kernel_s = (pred_steps * step_ms["pred"] + inv_steps * step_ms["inv"]) / 1e3
+    _r, planning_only, _t = timed_plan(
+        paule, dict(kw, continue_learning=False),
+        "  same budget, continue_learning=False")
+    print(f"  planning {t['planning'] / (n_outer * n_inner) * 1e3:.2f} ms per "
+          f"inner step; continue-learning {t['continue_learning'] / n_outer:.3f}"
+          f" s per outer iteration, {t['continue_learning'] / steps * 1e3:.2f}"
+          f" ms per training step ({steps} Adam steps at batch 8)")
+    print(f"  B1 + B2 at the training shapes, timed apart: {pred_steps} x "
+          f"{step_ms['pred']:.3f} ms (T=402) + {inv_steps} x "
+          f"{step_ms['inv']:.3f} ms (T=201) = {kernel_s:.3f} s, "
+          f"{kernel_s / t['continue_learning']:.0%} of continue_learning")
+    print(f"  planned_loss_steps[0, -1] {r.planned_loss_steps[0]:.6f} "
+          f"{r.planned_loss_steps[-1]:.6f}")
+    print(f"  pred_model_loss {r.pred_model_loss}")
+    print(f"  inv_model_loss {r.inv_model_loss}")
+    print(f"  launches during the run: {launches}; without continue-"
+          f"learning: {planning_only}")
+    ok = check_losses(r, n_outer * n_inner, 402, "continue-learning path")
+    model_losses = r.pred_model_loss + r.inv_model_loss
+    if (len(r.pred_model_loss) != 10 * n_outer
+            or len(r.inv_model_loss) != 10 * n_outer
+            or not np.isfinite(model_losses).all()):
+        print("continue-learning path: missing or non-finite model losses",
+              file=sys.stderr)
+        ok = False
+    if steps != 2 * 30 * n_outer:
+        print(f"continue-learning path: {steps} training steps, expected "
+              f"{2 * 30 * n_outer}", file=sys.stderr)
+        ok = False
+    for name in ("lstm_fwd", "lstm_bwd"):
+        if launches[name] - planning_only[name] != steps:
+            print(f"continue-learning path: {name} launched "
+                  f"{launches[name] - planning_only[name]} more times than "
+                  f"without training, expected {steps}", file=sys.stderr)
+            ok = False
+    if not all(launches.values()):
+        print("continue-learning path: a kernel was not launched",
+              file=sys.stderr)
         ok = False
     return ok, launches
 
 
-def check_against_cpu():
+def check_against_cpu(continue_learning):
     """The same short plan on the card (float32, kernels) and on the CPU
-    (float64, plain versions): the planned and produced losses agree."""
+    (float64, plain versions): the planned and produced losses, and the
+    models' training losses with ``continue_learning``, agree."""
     target = synth_target(42, seed=1)
+    kw = dict(target_acoustic=target, objective="acoustic_semvec",
+              n_outer=2 if continue_learning else 1, n_inner=3, log_ii=1,
+              continue_learning=continue_learning,
+              continue_learning_inv=continue_learning, verbose=False)
+    series = ("planned_loss_steps", "prod_loss_steps",
+              "prod_semvec_loss_steps", "pred_model_loss", "inv_model_loss")
     out = {}
     for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
         paule = Paule(device=dev, dtype=dtype, seed=7)
-        r = paule.plan_resynth(
-            target_acoustic=target, objective="acoustic_semvec",
-            n_outer=1, n_inner=3, log_ii=1, continue_learning=False,
-            verbose=False)
-        paule.close()
-        out[dev] = np.array(r.planned_loss_steps + r.prod_loss_steps
-                            + r.prod_semvec_loss_steps)
-    err = float(np.max(np.abs(out["cuda"] - out["cpu"]) / np.abs(out["cpu"])))
-    print(f"short plan, card f32 vs CPU f64: losses max rel err {err:.3e} "
-          f"(tol {PLAN_RTOL})")
+        try:
+            r = paule.plan_resynth(**kw)
+        finally:
+            paule.close()
+        out[dev] = {s: np.array(getattr(r, s)) for s in series}
+    errs = {s: float(np.max(np.abs(out["cuda"][s] - out["cpu"][s])
+                            / np.abs(out["cpu"][s]), initial=0.0))
+            for s in series}
+    err = max(errs.values())
+    print(f"short plan (continue_learning={continue_learning}), card f32 vs "
+          f"CPU f64: {sum(len(v) for v in out['cpu'].values())} losses, max "
+          f"rel err {err:.3e} (tol {PLAN_RTOL}); per series " + ", ".join(
+              f"{s} {e:.1e}" for s, e in errs.items()))
     return err <= PLAN_RTOL
 
 
@@ -316,55 +411,78 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip())
+    print(P.card_line())
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    K.build(verbose=True)
+    build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator().manual_seed(0)
     print("kernels against their plain versions:")
     ok_c, core = check_core(dev, gen, 402, 1)
+    # B=8: continue-learning's training batch, T=402 for the forward model
+    ok_c8, core8 = check_core(dev, gen, 402, 8)
     ok_s1, stack = check_stack2(dev, gen, 201, 1)
     ok_s4, stack4 = check_stack2(dev, gen, 201, 4)
     # B=24: the produced-audio metrics at the default budget (24 logged
     # snapshots per outer iteration); several row passes per warp
     ok_s24, stack24 = check_stack2(dev, gen, 201, 24)
-    ok = ok_c and ok_s1 and ok_s4 and ok_s24
+    # T=201, B=8: the inverse model's training shape (201 mel frames)
+    ok_ci8, core_inv8 = check_core(dev, gen, 201, 8)
+    ok = ok_c and ok_c8 and ok_s1 and ok_s4 and ok_s24 and ok_ci8
     results = {**core, **stack}
-    for name in ("lstm_stack2_fwd", "lstm_stack2_bwd"):
-        for key in ("max_abs_err", "rel_err"):
-            vals = [r[name][key] for r in (results, stack4, stack24)
-                    if r[name][key] is not None]
-            results[name][key] = max(vals) if vals else None
-    for name, r in results.items():
-        print(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
-              f" ms, cuDNN {r['library_ms']:.3f} ms, bound "
-              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
-    for batch, res in ((4, stack4), (24, stack24)):
-        for name, r in res.items():
-            print(f"  {name} B={batch}: kernel {r['ms']:.3f} ms, plain "
-                  f"{r['plain_ms']:.3f} ms, cuDNN {r['library_ms']:.3f} ms,"
-                  f" bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    for name in core:
+        merge_errors(name, results, core8, core_inv8)
+    for name in stack:
+        merge_errors(name, results, stack4, stack24)
+    print_times("", results)
+    print_times(" T=402 B=8", core8)
+    print_times(" T=201 B=8", core_inv8)
+    print_times(" B=4", stack4)
+    print_times(" B=24", stack24)
+
+    print("ceiling probes:")
+    ok_p, probe, probe_launches = run_probes()
 
     print("main path:")
-    ok_main, launches = drive_main_path()
-    ok = check_against_cpu() and ok and ok_main
+    target = synth_target(402, seed=0)
+    t0 = time.perf_counter()
+    paule = Paule(seed=7)
+    print(f"Paule() on {paule.device}: {time.perf_counter() - t0:.1f} s")
+    try:
+        ok_plan = drive_planning(paule, target)
+        ok_cl, launches = drive_continue_learning(paule, target, {
+            "pred": core8["lstm_fwd"]["ms"] + core8["lstm_bwd"]["ms"],
+            "inv": core_inv8["lstm_fwd"]["ms"] + core_inv8["lstm_bwd"]["ms"]})
+    finally:
+        paule.close()
+    ok_cpu = check_against_cpu(False)
+    ok_cpu_cl = check_against_cpu(True)
+    ok = ok and ok_p and ok_plan and ok_cl and ok_cpu and ok_cpu_cl
 
     kernels = []
     for k in K.KERNELS:
         r = results[k.__name__]
         kernels.append({
-            "name": k.__name__, "route": "cuda", "source": SOURCE,
+            "name": k.__name__, "route": "cuda", "source": LSTM_SOURCE,
             "replaces": REPLACES[k.__name__],
             "launches": launches[k.__name__],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    for k in P.KERNELS:
+        name = k.__name__
+        r = probe["times"][name]
+        kernels.append({
+            "name": f"probe_{name}", "route": "cuda", "source": PROBE_SOURCE,
+            "replaces": REPLACES[name], "launches": probe_launches[name],
+            "max_abs_err": probe["errors"][name]["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"]})
+    print(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -1,16 +1,19 @@
 """The :class:`Paule` facade of the port (counterpart of
-``paule_tpu/api.py``), for the path that plans one utterance:
-``plan_resynth(target_acoustic=(sig, sr), initialize_from="acoustic",
-objective="acoustic" | "acoustic_semvec", continue_learning=False)``.
+``paule_tpu/api.py``), for the main path: ``plan_resynth(target_acoustic=
+<wav path or (sig, sr)>, initialize_from="acoustic", objective="acoustic" |
+"acoustic_semvec", continue_learning=True)``, with ``past_cp`` and the
+inverse model's continue-learning.
 
 Options outside that path raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.  Synthesis and the produced-audio metrics
-run synchronously after each outer iteration's planning segment; the JAX
-package's overlap and deferred-fetch machinery is numerically exact there
-(``paule_tpu/api.py:122-146``), so the results are the same.
+ROADMAP.md item that ports them.  Synthesis, the produced-audio metrics and
+continue-learning run synchronously after each outer iteration's planning
+segment; the JAX package's overlap and deferred-fetch machinery is
+numerically exact there (``paule_tpu/api.py:122-146``, ``:935-955``), so the
+results are the same.
 """
 
 import os
+import random
 import time
 
 import numpy as np
@@ -27,10 +30,8 @@ from .planning import engine
 from .planning.engine import MEL_WEIGHT, SEMANTIC_WEIGHT
 from .planning.results import (BestSynthesisAcoustic, BestSynthesisSemantic,
                                PlanningResults)
+from .planning.trainer import ModelTrainer, ReplayBuffer, train_epochs
 from .release import load_into, load_release
-
-_CL_ITEM = ("continue-learning is not ported yet (ROADMAP.md, 'Modules to "
-            "port', item 7); pass continue_learning=False")
 
 
 def _np(t):
@@ -39,14 +40,22 @@ def _np(t):
 
 class Paule:
     """The predictive, inverse and embedder models with the release
-    weights, the synthesizer pool, and the best-synthesis trackers.
+    weights, their continue-learning trainers and replay buffer, the
+    synthesizer pool, and the best-synthesis trackers.
 
     ``device=None`` means ``"cuda"``, which raises when no CUDA device is
     present; pass ``device="cpu"`` to run on the CPU (the LSTM kernels'
-    plain versions)."""
+    plain versions).
+
+    ``continue_data`` seeds the replay buffer: a mapping from the columns
+    of :data:`~paule_tpu_torch.planning.trainer.COLUMNS` to equal-length
+    sequences (a pandas DataFrame is one), capped at 1000 rows.  As in the
+    reference, with ``continue_data=None`` the buffer stays empty for good:
+    produced snapshots train the models within each ``plan_resynth`` call
+    but are not kept across calls."""
 
     def __init__(self, *, device=None, dtype=torch.float32, seed=20200905,
-                 speaker="default", smiling=False,
+                 speaker="default", smiling=False, continue_data=None,
                  use_somatosensory_feedback=False,
                  use_speech_classifier=False):
         if use_somatosensory_feedback or use_speech_classifier:
@@ -67,8 +76,11 @@ class Paule:
             torch.backends.cudnn.allow_tf32 = False
         self.dtype = dtype
         self.smiling = smiling
-        #: explicit generator for the port's randomness (seeded per run)
+        #: explicit generator for the port's tensor randomness
         self.generator = torch.Generator().manual_seed(seed)
+        #: batching and replay sampling draw from this, call for call as
+        #: the JAX package draws (``paule_tpu/api.py:150``)
+        self._py_rng = random.Random(seed)
 
         weights, _meta = load_release()
         kw = {"device": self.device, "dtype": dtype}
@@ -82,8 +94,12 @@ class Paule:
         self.embedder = load_into(
             EmbeddingModel(num_lstm_layers=2, hidden_size=720),
             weights["embedder"], **kw).eval()
-        for model in (self.pred_model, self.inv_model, self.embedder):
-            model.requires_grad_(False)
+        # frozen: planning takes no weight gradients; the trainers unfreeze
+        # their model only inside a training step
+        self.embedder.requires_grad_(False)
+        self.pred_trainer = ModelTrainer(self.pred_model, loss="rmse")
+        self.inv_trainer = ModelTrainer(self.inv_model, loss="cp_trajectory")
+        self.continue_data = ReplayBuffer(continue_data, rng=self._py_rng)
 
         self.synth_pool = synth.SynthPool(size=min(8, os.cpu_count() or 2),
                                           speaker_path=speaker)
@@ -118,7 +134,8 @@ class Paule:
     def _prod_metrics(self, sigs, target_mel, target_semvec, want_semvec):
         """Produced-audio metrics of all logged snapshots in one batch:
         mels, mel losses and, with ``want_semvec``, semvecs and their
-        losses; returned as float64 numpy."""
+        losses.  -> (those as float64 numpy, the produced mels on the
+        device, which continue-learning trains on)."""
         with torch.no_grad():
             prod_mel = normalize_mel(melspec_44100(self._tensor(sigs)))
             out = {"prod_mel": prod_mel,
@@ -129,21 +146,38 @@ class Paule:
                 out["prod_semvec"] = prod_semvec
                 out["prod_semvec_loss"] = SEMANTIC_WEIGHT * torch.sqrt(
                     ((prod_semvec - target_semvec) ** 2).mean(dim=1))
-        return {k: _np(v) for k, v in out.items()}
+        return {k: _np(v) for k, v in out.items()}, prod_mel
 
     def plan_resynth(self, *, learning_rate_planning=0.01,
+                     learning_rate_learning=0.001,
+                     learning_rate_learning_inv=None,
                      target_acoustic=None, target_semvec=None,
                      initial_cp=None, past_cp=None,
                      initialize_from="acoustic", objective="acoustic",
                      n_outer=5, n_inner=24, continue_learning=True,
+                     continue_learning_inv=False,
+                     continue_learning_tube=False,
+                     add_training_data_pred=False,
+                     add_training_data_inv=False,
+                     n_batches=3, batch_size=8, n_epochs=10,
                      log_ii=1, log_semantics=True, log_gradients=False,
                      log_signals=False, log_cps=False, seed=None,
                      verbose=True):
-        """Plan a cp trajectory that resynthesises ``target_acoustic``
-        (``(sig, sr)`` or a normalised target mel ``(T, 60)``); argument
-        surface and results of ``paule_tpu.api.Paule.plan_resynth``."""
-        if continue_learning:
-            raise NotImplementedError(_CL_ITEM)
+        """Plan a cp trajectory that resynthesises ``target_acoustic`` (a
+        WAV path, ``(sig, sr)`` or a normalised target mel ``(T, 60)``);
+        argument surface and results of
+        ``paule_tpu.api.Paule.plan_resynth``.
+
+        With ``continue_learning``, each outer iteration then trains the
+        predictive model (and, with ``continue_learning_inv``, the inverse
+        model) for ``n_epochs`` on ``n_batches`` batches of ``batch_size``
+        drawn from its logged snapshots and their produced mels, mixed
+        half and half with replay rows when ``add_training_data_pred``
+        (``add_training_data_inv``) is set and the replay buffer holds
+        any."""
+        if seed:
+            self.generator.manual_seed(seed)
+            self._py_rng.seed(seed)
         if objective not in engine.OBJECTIVES:
             raise ValueError("objective has to be one of 'acoustic_semvec', "
                              "'acoustic' or 'semvec'")
@@ -153,17 +187,22 @@ class Paule:
                 "semvec objectives, semvec initialisation and semvec-only "
                 "targets are not ported yet (ROADMAP.md, 'Modules to port', "
                 "item 9)")
-        if past_cp is not None:
+        if continue_learning_tube:
             raise NotImplementedError(
-                "past_cp is not ported yet (ROADMAP.md, 'Modules to port', "
-                "item 8)")
+                "continue_learning_tube (the somatosensory models) is not "
+                "ported yet (ROADMAP.md, 'Modules to port', item 10)")
+        if learning_rate_learning:
+            self.pred_trainer.set_learning_rate(learning_rate_learning)
+        if learning_rate_learning_inv:
+            self.inv_trainer.set_learning_rate(learning_rate_learning_inv)
         if log_ii is None:
             log_ii = n_inner
         if log_ii > n_inner:
             raise ValueError("results can only be logged between first and "
                              "last planning step")
-        if seed:
-            self.generator.manual_seed(seed)
+        if past_cp is not None and past_cp.shape[0] % 2 != 0:
+            raise ValueError("past_cp have to be None or the sequence length "
+                             "has to be an even number")
         want_semvec = objective == "acoustic_semvec" or log_semantics
 
         # ---------------- target ----------------
@@ -201,9 +240,17 @@ class Paule:
             if initial_cp.shape[0] != target_mel.shape[1] * 2:
                 raise ValueError(f"initial_cp {initial_cp.shape[0]}, "
                                  f"target_mel {target_mel.shape[1] * 2}")
+        past_len = 0
+        if past_cp is not None:
+            # the produced prefix joins the trajectory, pinned by the
+            # constraints (paule_tpu/api.py:807-816)
+            past_len = past_cp.shape[0]
+            initial_cp = np.concatenate(
+                (np.asarray(past_cp, dtype=np.float64), initial_cp), axis=0)
         xx = self._tensor(initial_cp[None]).requires_grad_(True)
         models = engine.Models(self.pred_model, self.embedder)
-        constraints = engine.Constraints(clamp=1.05, smiling=self.smiling)
+        constraints = engine.Constraints(clamp=1.05, smiling=self.smiling,
+                                         past_len=past_len)
 
         # ---------------- initial baseline ----------------
         with torch.no_grad():
@@ -214,6 +261,12 @@ class Paule:
         initial_sig = audio[0]
         initial_prod_mel = normalize_mel(librosa_melspec(
             initial_sig, initial_sr, device=self.device, dtype=self.dtype))
+        if past_len:
+            # the target mel gains the produced prefix's mel
+            # (paule_tpu/api.py:870-875); the target semvec stays
+            target_mel = np.concatenate(
+                (initial_prod_mel[None, :past_len // 2], target_mel), axis=1)
+            target_mel_dev = self._tensor(target_mel)
         initial_prod_semvec = _np(self._embed(
             self._tensor(initial_prod_mel[None])))[0]
         self.best_synthesis_acoustic = BestSynthesisAcoustic(
@@ -282,8 +335,8 @@ class Paule:
             timings["synthesis"] += time.perf_counter() - t0
 
             t0 = time.perf_counter()
-            pm = self._prod_metrics(sigs, target_mel_dev, target_semvec_dev,
-                                    want_semvec)
+            pm, prod_mels_dev = self._prod_metrics(
+                sigs, target_mel_dev, target_semvec_dev, want_semvec)
             prod_mel = pm["prod_mel"][-1]
             prod_semvecs = []
             for s in range(n_segments):
@@ -317,6 +370,17 @@ class Paule:
                 logs["cp_steps"].append(list(snapshots))
             timings["metrics"] += time.perf_counter() - t0
 
+            if continue_learning and n_segments:
+                t0 = time.perf_counter()
+                self._continue_learning(
+                    seg["xx_pre"][:, 0], prod_mels_dev, target_semvec_dev[0],
+                    logs, continue_learning_inv=continue_learning_inv,
+                    add_training_data_pred=add_training_data_pred,
+                    add_training_data_inv=add_training_data_inv,
+                    n_batches=n_batches, batch_size=batch_size,
+                    n_epochs=n_epochs, verbose=verbose)
+                timings["continue_learning"] += time.perf_counter() - t0
+
         # ---------------- final results ----------------
         with torch.no_grad():
             pred_mel_dev = self.pred_model(xx)
@@ -340,3 +404,74 @@ class Paule:
             logs["grad_steps"], logs["sig_steps"], logs["prod_mel_steps"],
             logs["pred_mel_steps"], logs["pred_model_loss"],
             logs["inv_model_loss"])
+
+    # ------------------------------------------------------------------
+    # continue-learning
+    # ------------------------------------------------------------------
+
+    def _rows_on_device(self, rows):
+        return [r.to(self.device, self.dtype) if torch.is_tensor(r)
+                else self._tensor(r) for r in rows]
+
+    def _continue_learning(self, snapshots, prod_mels, target_semvec, logs,
+                           *, continue_learning_inv, add_training_data_pred,
+                           add_training_data_inv, n_batches, batch_size,
+                           n_epochs, verbose):
+        """Train on this outer iteration's pre-update snapshots
+        ``(L, T, 30)`` and the mels of the audio produced from them, both on
+        the device, then offer them to the replay buffer (counterpart of
+        ``paule_tpu/api.py:1523-1693``, drawing from ``self._py_rng`` in
+        the same order)."""
+        n_prod = snapshots.shape[0]
+
+        def scarce(header, k_total):
+            if verbose:
+                print(header)
+                if int(np.ceil(k_total / batch_size)) < n_batches:
+                    print(f"Training on {int(np.ceil(k_total / batch_size))}"
+                          " batches instead...")
+                if k_total % batch_size:
+                    print(f"Last batch reduced to {k_total % batch_size} "
+                          f"samples instead of {batch_size}...")
+                print(" ")
+
+        def sample_training(add_training_data):
+            """-> (cp rows, mel rows): this iteration's rows, or half replay
+            rows followed by half of them."""
+            if add_training_data and len(self.continue_data) > 0:
+                want = int(0.5 * batch_size) * n_batches
+                if n_prod < want:
+                    # all produced rows plus as many replay rows
+                    k = min(n_prod, len(self.continue_data))
+                    scarce("Enhanced training data\nNot enough data produced "
+                           f"to fill 50% of {n_batches} batches...", 2 * k)
+                else:
+                    k = min(want, len(self.continue_data))
+                prod_idx = self._py_rng.sample(range(n_prod), k)
+                old = self.continue_data.sample(k)
+                return (self._rows_on_device(old["cp_norm"])
+                        + [snapshots[i] for i in prod_idx],
+                        self._rows_on_device(old["melspec_norm_synthesized"])
+                        + [prod_mels[i] for i in prod_idx])
+            want = batch_size * n_batches
+            k = min(want, n_prod)
+            if k < want:
+                scarce("Produced training data\nNot enough data produced to "
+                       f"fill {n_batches} batches...", k)
+            idx = torch.as_tensor(self._py_rng.sample(range(n_prod), k),
+                                  device=snapshots.device)
+            return snapshots[idx], prod_mels[idx]
+
+        train = dict(batch_size=batch_size, n_epochs=n_epochs,
+                     rng=self._py_rng)
+        cps, mels = sample_training(add_training_data_pred)
+        logs["pred_model_loss"].extend(
+            train_epochs(self.pred_trainer, cps, mels, **train))
+        if continue_learning_inv:
+            cps, mels = sample_training(add_training_data_inv)
+            logs["inv_model_loss"].extend(
+                train_epochs(self.inv_trainer, mels, cps, **train))
+        self.continue_data.append({
+            "vector": [target_semvec] * n_prod, "cp_norm": list(snapshots),
+            "melspec_norm_synthesized": list(prod_mels),
+            "tube_norm": [None] * n_prod, "segment_data": [False] * n_prod})

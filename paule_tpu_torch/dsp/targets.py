@@ -4,6 +4,7 @@ minimum is 0; produced mels stay unshifted."""
 
 import numpy as np
 
+from .audio import read as audio_read, stereo_to_mono
 from .mel import librosa_melspec
 from ..ops.normalize import normalize_mel
 
@@ -15,13 +16,12 @@ def normalized_target_mel(sig, sr, *, device, dtype):
 
 
 def audio_target_to_mel(target, *, device, dtype):
-    """``(sig, sr)`` -> ``(sig, sr, target_mel)``."""
+    """Audio file path or ``(sig, sr)`` -> ``(sig, sr, target_mel)``."""
     if isinstance(target, str):
-        raise NotImplementedError(
-            "audio-file targets (paule_tpu/dsp/audio.py) are not ported yet "
-            "(ROADMAP.md, 'Modules to port', item 4); pass (sig, sr)")
-    sig, sr = target
+        sig, sr = audio_read(target)
+    else:
+        sig, sr = target
     sig = np.asarray(sig, dtype=np.float64)
     if sig.ndim == 2:
-        sig = sig.mean(axis=1)
+        sig = stereo_to_mono(sig)
     return sig, sr, normalized_target_mel(sig, sr, device=device, dtype=dtype)

@@ -1,4 +1,5 @@
-"""Losses of planning (counterparts of ``paule_tpu/ops/losses.py``)."""
+"""Losses of planning and continue-learning (counterparts of
+``paule_tpu/ops/losses.py``)."""
 
 import torch
 
@@ -30,3 +31,18 @@ def local_linear_loss(cps):
     """MSE of the second central difference against zero."""
     ll = local_linear(cps)
     return mse(ll, torch.zeros_like(ll))
+
+
+def cp_trajectory_loss(y_hat, tgts):
+    """RMSE of position plus 3x the RMSE of velocity, acceleration and
+    jerk (the reference sums three identical evaluations of each).
+    -> ``(loss, pos_loss, vel_loss, acc_loss, jerk_loss)``, the derivative
+    terms already scaled by 3."""
+    vel_t, acc_t, jerk_t = vel_acc_jerk(tgts)
+    vel_p, acc_p, jerk_p = vel_acc_jerk(y_hat)
+    pos_loss = rmse(y_hat, tgts)
+    vel_loss = 3.0 * rmse(vel_p, vel_t)
+    acc_loss = 3.0 * rmse(acc_p, acc_t)
+    jerk_loss = 3.0 * rmse(jerk_p, jerk_t)
+    return (pos_loss + vel_loss + acc_loss + jerk_loss, pos_loss, vel_loss,
+            acc_loss, jerk_loss)

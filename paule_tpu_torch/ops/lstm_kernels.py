@@ -13,108 +13,22 @@ CUDA tensor it launches its kernel (float32, contiguous, one device) or
 raises; nothing falls back.  Each wrapper counts its launches in a plain
 integer attribute, ``<wrapper>.launches``, so a run can show that it went
 through the kernel.  The kernel library is built with ``nvcc`` on first use
-into ``paule_tpu_torch/_build/`` and rebuilt when the source changes.
+into ``paule_tpu_torch/_build/`` and rebuilt when the source changes
+(:mod:`.cuda_build`).
 
 What bounds the kernels and what their design does about it is written at
 the top of ``csrc/lstm.cu``.
 """
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "lstm.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_PATH = os.path.join(BUILD_DIR, "liblstm.so")
-_STAMP = LIB_PATH + ".sha256"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from .cuda_build import CudaLibrary, check_tensor as _check
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the LSTM kernels are built with "
-                           "the CUDA toolkit (set CUDA_HOME)")
-    return path
-
-
-def build(verbose=False):
-    """Compile ``csrc/lstm.cu`` into ``_build/liblstm.so`` unless a library
-    built from the same source exists; returns its path."""
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()
-    try:
-        with open(_STAMP) as fh:
-            if fh.read().strip() == digest and os.path.exists(LIB_PATH):
-                return LIB_PATH
-    except OSError:
-        pass
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
-    result = subprocess.run(cmd, capture_output=True, text=True)
-    if result.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{result.stderr}\n{result.stdout}")
-    if verbose:
-        print(result.stderr, end="")
-    os.replace(tmp, LIB_PATH)
-    with open(_STAMP, "w") as fh:
-        fh.write(digest)
-    return LIB_PATH
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            for name, n_ptr in (("paule_lstm_fwd", 6), ("paule_lstm_bwd", 7),
-                                ("paule_lstm_stack2_fwd", 12),
-                                ("paule_lstm_stack2_bwd", 11)):
-                fn = getattr(lib, name)
-                fn.argtypes = [p] * n_ptr + [i, i, i, p]
-                fn.restype = i
-            _lib = lib
-    return _lib
-
-
-def _check(name, t, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernels take float32, got "
-                        f"{t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _launch(fn_name, device, args, dims):
-    lib = _load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*[a.data_ptr() for a in args], *dims,
-                                   stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
+LIBRARY = CudaLibrary("lstm.cu", {
+    "paule_lstm_fwd": 6, "paule_lstm_bwd": 7, "paule_lstm_stack2_fwd": 12,
+    "paule_lstm_stack2_bwd": 11})
+build = LIBRARY.build
+_launch = LIBRARY.launch
 
 
 def _split(x, hidden):

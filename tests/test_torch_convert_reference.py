@@ -27,6 +27,7 @@ from paule_tpu import models as M
 from paule_tpu.models import torch_convert as TC
 
 from paule_tpu.reference_bridge import reference_available
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REF_MODELS = pathlib.Path("/root/reference/paule/models.py")
 

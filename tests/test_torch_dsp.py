@@ -1,20 +1,27 @@
-"""The port's DSP front end and synthesizer binding against the JAX
-package: log-mel to 1e-8 in float64, resampling and synthesis exact."""
+"""The port's DSP front end, audio file IO and synthesizer binding against
+the JAX package: log-mel to 1e-8 in float64; resampling, WAV IO and
+synthesis exact."""
+
+import struct
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
 
 from paule_tpu import synth as JS
+from paule_tpu.dsp import audio as JA
 from paule_tpu.dsp import mel as JM
 from paule_tpu.dsp import resample as JRS
 from paule_tpu.dsp import targets as JT
 from paule_tpu.ops.normalize import inv_normalize_cp
 from paule_tpu_torch import synth as TS
+from paule_tpu_torch.dsp import audio as TA
 from paule_tpu_torch.dsp import mel as TM
 from paule_tpu_torch.dsp import resample as TRS
 from paule_tpu_torch.dsp import targets as TT
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-8
 F64 = {"device": "cpu", "dtype": torch.float64}
@@ -63,6 +70,65 @@ def test_target_mel_matches_jax():
     sig, sr, mel = TT.audio_target_to_mel((np.stack([y, y], 1), 44100), **F64)
     np.testing.assert_array_equal(sig, y)
     np.testing.assert_allclose(mel, JT.normalized_target_mel(y, 44100),
+                               rtol=0, atol=ATOL)
+
+
+def _raw_wav(path, frames, fmt_tag, bits, channels, sr=16000):
+    """A RIFF/WAVE file holding ``frames`` (raw sample bytes) as written by
+    another tool, with a ``LIST`` chunk before ``data``."""
+    fmt = struct.pack("<HHIIHH", fmt_tag, channels, sr,
+                      sr * channels * bits // 8, channels * bits // 8, bits)
+    chunks = (b"fmt " + struct.pack("<I", len(fmt)) + fmt
+              + b"LIST" + struct.pack("<I", 3) + b"abc\x00"
+              + b"data" + struct.pack("<I", len(frames)) + frames)
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WAVE"
+                 + chunks)
+
+
+@pytest.mark.parametrize("kind", ["pcm16_mono", "pcm16_stereo", "pcm8",
+                                  "pcm24", "pcm32", "float32", "float64"])
+def test_wav_io_matches_jax(kind, tmp_path):
+    """A WAV round trip: the port writes the JAX package's bytes, and both
+    read every supported encoding to the same signal."""
+    rng = np.random.default_rng(4)
+    path = str(tmp_path / f"{kind}.wav")
+    if kind.startswith("pcm16"):
+        sig = np.clip(rng.normal(0, 0.3, (300, 2 if "stereo" in kind
+                                          else 1)), -1, 1).squeeze()
+        assert TA.write(path, sig, 22050) == path
+        ref_path = str(tmp_path / "ref.wav")
+        JA.write(ref_path, sig, 22050)
+        with open(path, "rb") as a, open(ref_path, "rb") as b:
+            assert a.read() == b.read()
+    else:
+        bits = int(kind[-2:]) if kind[-2:].isdigit() else 8
+        fmt_tag = 3 if kind.startswith("float") else 1
+        n_bytes = 50 * bits // 8
+        _raw_wav(path, rng.integers(0, 256, n_bytes, dtype=np.uint8)
+                 .tobytes() if fmt_tag == 1 else
+                 rng.normal(0, 0.3, 50).astype(f"<f{bits // 8}").tobytes(),
+                 fmt_tag, bits, channels=1)
+    out, sr = TA.read(path)
+    ref, ref_sr = JA.read(path)
+    assert sr == ref_sr and out.dtype == np.float64
+    np.testing.assert_array_equal(out, ref)
+    if out.ndim == 2:
+        for which in ("left", "right", "both"):
+            np.testing.assert_array_equal(TA.stereo_to_mono(out, which),
+                                          JA.stereo_to_mono(ref, which))
+
+
+def test_audio_path_target_matches_jax(tmp_path):
+    y = _sig(8000, seed=5)
+    path = str(tmp_path / "target.wav")
+    TA.write(path, np.stack([y, -y], 1), 16000)
+    sig, sr, mel = TT.audio_target_to_mel(path, **F64)
+    ref_sig, ref_sr = JA.read(path)
+    ref_sig = JA.stereo_to_mono(ref_sig)
+    assert sr == ref_sr == 16000
+    np.testing.assert_array_equal(sig, ref_sig)
+    np.testing.assert_allclose(mel, JT.normalized_target_mel(ref_sig, sr),
                                rtol=0, atol=ATOL)
 
 

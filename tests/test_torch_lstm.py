@@ -21,6 +21,7 @@ from paule_tpu.ops import lstm as JLS
 from paule_tpu.ops import pallas_lstm as PL
 from paule_tpu_torch.ops import lstm as TLS
 from paule_tpu_torch.ops import lstm_kernels as K
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL64 = 1e-10
 

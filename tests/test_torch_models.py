@@ -20,6 +20,7 @@ from paule_tpu_torch.models import blocks as TB
 from paule_tpu_torch.models.embedder import EmbeddingModel
 from paule_tpu_torch.models.forward import ForwardModel
 from paule_tpu_torch.models.inverse import InverseModelMelTimeSmoothResidual
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-8
 F64 = {"device": "cpu", "dtype": torch.float64}

@@ -15,6 +15,7 @@ from paule_tpu.ops import normalize as JN
 from paule_tpu_torch.ops import derivatives as TD
 from paule_tpu_torch.ops import losses as TL
 from paule_tpu_torch.ops import normalize as TN
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-10
 

@@ -17,6 +17,7 @@ from paule_tpu_torch.models.embedder import EmbeddingModel
 from paule_tpu_torch.models.forward import ForwardModel
 from paule_tpu_torch.planning import engine as TEng
 from paule_tpu_torch.release import load_into
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-8
 F64 = {"device": "cpu", "dtype": torch.float64}

@@ -1,13 +1,14 @@
 """The slice as a whole: the port's ``Paule.plan_resynth`` against
 ``paule_tpu.api.Paule.plan_resynth`` with the same release weights on a
-short synthesised target (float64 on the CPU on both sides), and the guards
-of the port's boundaries."""
+short synthesised target (float64 on the CPU on both sides), without and
+with continue-learning, and the guards of the port's boundaries."""
 
 import os
 import subprocess
 import sys
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -15,6 +16,8 @@ from paule_tpu import synth as JS
 from paule_tpu.api import Paule as JPaule
 from paule_tpu.ops.normalize import inv_normalize_cp
 from paule_tpu_torch.api import Paule
+from paule_tpu_torch.dsp.audio import read, write
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,14 +58,80 @@ def test_plan_resynth_matches_jax(target, objective, log_ii):
     assert len(out.prod_mel_steps) == len(ref.prod_mel_steps) == 1
 
 
+def _replay_rows(n_rows, mel_frames, seed):
+    """Replay-buffer rows of another length than the produced ones, so that
+    mixed batches are padded."""
+    rng = np.random.default_rng(seed)
+    return pd.DataFrame({
+        "vector": [rng.normal(size=300) for _ in range(n_rows)],
+        "cp_norm": [np.clip(rng.normal(0, 0.05, (2 * mel_frames, 30))
+                            .cumsum(0), -1, 1) for _ in range(n_rows)],
+        "melspec_norm_synthesized": [rng.normal(0, 0.3, (mel_frames, 60))
+                                     for _ in range(n_rows)],
+        "tube_norm": [None] * n_rows, "segment_data": [False] * n_rows})
+
+
+@pytest.mark.parametrize("case", ["produced", "replay", "past_cp"])
+def test_plan_resynth_continue_learning_matches_jax(target, case):
+    kw = dict(target_acoustic=target, initialize_from="acoustic",
+              objective="acoustic_semvec", n_outer=2, n_inner=4, log_ii=1,
+              continue_learning=True, continue_learning_inv=True,
+              n_batches=1, batch_size=4, n_epochs=2, verbose=False)
+    init = {}
+    if case == "replay":
+        kw.update(add_training_data_pred=True, add_training_data_inv=True)
+        init["continue_data"] = _replay_rows(3, 15, seed=5)
+    if case == "past_cp":
+        kw["past_cp"] = np.clip(np.random.default_rng(6).normal(
+            0, 0.05, (6, 30)).cumsum(0), -1, 1)
+    ref = JPaule(seed=7, **init).plan_resynth(**kw)
+    port = Paule(device="cpu", dtype=torch.float64, seed=7, **init)
+    try:
+        out = port.plan_resynth(**kw)
+    finally:
+        port.close()
+
+    np.testing.assert_allclose(out.planned_cp, ref.planned_cp, rtol=0,
+                               atol=1e-6)
+    assert len(out.pred_model_loss) == len(out.inv_model_loss) == 4
+    for key in ("planned_loss_steps", "prod_loss_steps",
+                "prod_semvec_loss_steps", "pred_model_loss",
+                "inv_model_loss"):
+        np.testing.assert_allclose(getattr(out, key), getattr(ref, key),
+                                   rtol=1e-5, atol=0, err_msg=key)
+    for key in ("initial_cp", "target_mel", "pred_mel"):
+        np.testing.assert_allclose(getattr(out, key), getattr(ref, key),
+                                   rtol=0, atol=1e-6, err_msg=key)
+    if case == "replay":
+        assert len(port.continue_data) == 3 + 2 * 4
+
+
+def test_wav_path_target_matches_sig_sr(target, tmp_path):
+    """A WAV path plans like the ``(sig, sr)`` it holds after the 16-bit
+    round trip."""
+    path = str(tmp_path / "target.wav")
+    write(path, *target)
+    sig, sr = read(path)
+    port = Paule(device="cpu", dtype=torch.float64, seed=7)
+    kw = dict(objective="acoustic", n_outer=1, n_inner=1,
+              continue_learning=False, verbose=False)
+    try:
+        a = port.plan_resynth(target_acoustic=path, **kw)
+        b = port.plan_resynth(target_acoustic=(sig, sr), **kw)
+    finally:
+        port.close()
+    np.testing.assert_array_equal(a.target_mel, b.target_mel)
+    np.testing.assert_allclose(a.planned_cp, b.planned_cp, rtol=0,
+                               atol=1e-12)
+
+
 def test_options_outside_the_slice_raise(target):
     port = Paule(device="cpu", dtype=torch.float64)
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.plan_resynth(target_acoustic=target, n_outer=1, n_inner=1,
-                              continue_learning=True)
-        for kw in ({"objective": "semvec"}, {"initialize_from": "semvec"},
-                   {"past_cp": np.zeros((4, 30))}):
+                              continue_learning_tube=True)
+        for kw in ({"objective": "semvec"}, {"initialize_from": "semvec"}):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 port.plan_resynth(target_acoustic=target, n_outer=1,
                                   n_inner=1, continue_learning=False, **kw)
@@ -81,7 +150,8 @@ def test_paule_without_cuda_raises(monkeypatch):
 
 
 def test_import_leaves_no_jax():
-    """The port imports neither JAX nor any module of the JAX package."""
+    """The port imports neither JAX, optax, pandas nor any module of the
+    JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import paule_tpu_torch\n"
@@ -89,7 +159,7 @@ def test_import_leaves_no_jax():
         "'paule_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'paule_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'pandas', 'paule_tpu'))\n"
         "assert 'paule_tpu_torch.api' in sys.modules\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
