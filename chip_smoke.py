@@ -10,7 +10,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    T=402 and T=201 with B=8 for the forward and inverse models' training
    steps), and times the
    kernel, the plain version and ``torch.nn.LSTM`` (cuDNN, a yardstick the
-   port never calls);
+   port never calls), with µs per time step; holds the persistent forward
+   kernels B1 and B3 also at edge shapes (T=1, a batch of 13 rows, H=100),
+   checks that two calls give bit-identical outputs, and counts with
+   ``torch.profiler`` that one call of each runs exactly one device kernel;
 3. runs the ceiling-probe entry point (``paule_tpu_torch.tools.
    kernel_ceiling_probes``): the four probe kernels against their plain
    versions at T=1024, B=1, H=720, with µs per step beside B1/B2;
@@ -107,6 +110,7 @@ def check_core(dev, gen, seq, batch):
     hs, cs = K.lstm_fwd(gx, w, h0, c0)
     hs_p, cs_p = K.lstm_fwd_plain(gx, w, h0, c0)
     fwd_err = max_abs([(hs, hs_p), (cs, cs_p)])
+    same = identical((hs, cs), K.lstm_fwd(gx, w, h0, c0))
 
     hs_prev = torch.cat([h0[None], hs_p[:-1]])
     cs_prev = torch.cat([c0[None], cs_p[:-1]]).contiguous()
@@ -129,13 +133,13 @@ def check_core(dev, gen, seq, batch):
 
     out = {
         "lstm_fwd": dict(
-            max_abs_err=fwd_err, rel_err=None,
+            seq=seq, max_abs_err=fwd_err, rel_err=None,
             ms=cuda_ms(lambda: K.lstm_fwd(gx, w, h0, c0), 20),
             plain_ms=cuda_ms(lambda: K.lstm_fwd_plain(gx, w, h0, c0), 3),
             library_ms=cudnn_lstm_ms(30, H, 1, seq, batch, dev, False),
             bound=lstm_fwd_bound(seq, batch, H)),
         "lstm_bwd": dict(
-            max_abs_err=bwd_err, rel_err=max(bwd_rel, grad_rel),
+            seq=seq, max_abs_err=bwd_err, rel_err=max(bwd_rel, grad_rel),
             ms=cuda_ms(lambda: K.lstm_bwd(acts, cs_prev, gout, w), 20),
             plain_ms=cuda_ms(lambda: K.lstm_bwd_plain(acts, cs_prev, gout,
                                                       w), 3),
@@ -143,11 +147,12 @@ def check_core(dev, gen, seq, batch):
             bound=lstm_bwd_bound(seq, batch, H)),
     }
     print(f"  B1 lstm_fwd  T={seq} B={batch}: fwd max|err| {fwd_err:.3e} "
-          f"(tol {FWD_ATOL})")
+          f"(tol {FWD_ATOL}); two calls bit-identical: {same}")
     print(f"  B2 lstm_bwd  T={seq} B={batch}: dgates/dh0/dc0 max|err| "
           f"{bwd_err:.3e}, rel {bwd_rel:.3e}; input/weight grads rel "
           f"{grad_rel:.3e} (tol {GRAD_RTOL})")
-    ok = fwd_err <= FWD_ATOL and bwd_rel <= GRAD_RTOL and grad_rel <= GRAD_RTOL
+    ok = (fwd_err <= FWD_ATOL and same and bwd_rel <= GRAD_RTOL
+          and grad_rel <= GRAD_RTOL)
     return ok, out
 
 
@@ -163,6 +168,7 @@ def check_stack2(dev, gen, seq, batch):
     outs = K.lstm_stack2_fwd(g1, w1, w2, b2, z, z, z, z)
     outs_p = K.lstm_stack2_fwd_plain(g1, w1, w2, b2, z, z, z, z)
     fwd_err = max_abs(zip(outs, outs_p))
+    same = identical(outs, K.lstm_stack2_fwd(g1, w1, w2, b2, z, z, z, z))
 
     hs1, cs1, hs2, cs2 = outs_p
     shift = lambda a: torch.cat([z[None], a[:-1]]).contiguous()  # noqa: E731
@@ -186,7 +192,7 @@ def check_stack2(dev, gen, seq, batch):
     f32 = 4
     out = {
         "lstm_stack2_fwd": dict(
-            max_abs_err=fwd_err, rel_err=None,
+            seq=seq, max_abs_err=fwd_err, rel_err=None,
             ms=cuda_ms(lambda: K.lstm_stack2_fwd(g1, w1, w2, b2, z, z, z, z),
                        20),
             plain_ms=cuda_ms(lambda: K.lstm_stack2_fwd_plain(
@@ -196,7 +202,7 @@ def check_stack2(dev, gen, seq, batch):
                                   + 4 * batch * H),
                            seq * batch * (24 * H * H + 26 * H))),
         "lstm_stack2_bwd": dict(
-            max_abs_err=bwd_err, rel_err=max(bwd_rel, grad_rel),
+            seq=seq, max_abs_err=bwd_err, rel_err=max(bwd_rel, grad_rel),
             ms=cuda_ms(lambda: K.lstm_stack2_bwd(*args), 20),
             plain_ms=cuda_ms(lambda: K.lstm_stack2_bwd_plain(*args), 3),
             library_ms=cudnn_lstm_ms(60, H, 2, seq, batch, dev, True),
@@ -204,17 +210,91 @@ def check_stack2(dev, gen, seq, batch):
                            seq * batch * (24 * H * H + 40 * H))),
     }
     print(f"  B3 lstm_stack2_fwd  T={seq} B={batch}: fwd max|err| "
-          f"{fwd_err:.3e} (tol {FWD_ATOL})")
+          f"{fwd_err:.3e} (tol {FWD_ATOL}); two calls bit-identical: {same}")
     print(f"  B4 lstm_stack2_bwd  T={seq} B={batch}: dgates max|err| "
           f"{bwd_err:.3e}, rel {bwd_rel:.3e}; input/weight grads rel "
           f"{grad_rel:.3e} (tol {GRAD_RTOL})")
-    ok = fwd_err <= FWD_ATOL and bwd_rel <= GRAD_RTOL and grad_rel <= GRAD_RTOL
+    ok = (fwd_err <= FWD_ATOL and same and bwd_rel <= GRAD_RTOL
+          and grad_rel <= GRAD_RTOL)
     return ok, out
+
+
+def identical(outs, again):
+    """Whether two calls' outputs are bit for bit the same."""
+    return all(torch.equal(a, b) for a, b in zip(outs, again))
+
+
+#: (T, B, H) at which B1 and B3 are also held against their plain versions:
+#: one step, a batch of 13 rows (a part-filled pass of rows), and H=100,
+#: which the units per block do not divide
+EDGE_SHAPES = ((1, 1, H), (1, 13, H), (37, 13, H), (23, 3, 100),
+               (9, 13, 100))
+
+
+def check_forward_edges(dev, gen):
+    """B1 and B3 at :data:`EDGE_SHAPES`, with random initial carries,
+    against their plain versions and against a second call.  -> ok."""
+    ok = True
+    for seq, batch, hidden in EDGE_SHAPES:
+        gx = _normal(gen, (seq, batch, 4 * hidden), 0.5, dev)
+        w = _uniform(gen, (hidden, 4 * hidden), hidden ** -0.5, dev)
+        w2 = _uniform(gen, (2 * hidden, 4 * hidden), hidden ** -0.5, dev)
+        b2 = _uniform(gen, (4 * hidden,), hidden ** -0.5, dev)
+        carries = [_normal(gen, (batch, hidden), 0.1, dev) for _ in range(4)]
+        args1 = (gx, w, *carries[:2])
+        args3 = (gx, w, w2, b2, *carries)
+        outs1 = K.lstm_fwd(*args1)
+        outs3 = K.lstm_stack2_fwd(*args3)
+        err1 = max_abs(zip(outs1, K.lstm_fwd_plain(*args1)))
+        err3 = max_abs(zip(outs3, K.lstm_stack2_fwd_plain(*args3)))
+        same = (identical(outs1, K.lstm_fwd(*args1))
+                and identical(outs3, K.lstm_stack2_fwd(*args3)))
+        print(f"  edge T={seq} B={batch} H={hidden}: B1 max|err| {err1:.3e}, "
+              f"B3 {err3:.3e} (tol {FWD_ATOL}); two calls bit-identical: "
+              f"{same}")
+        ok = ok and err1 <= FWD_ATOL and err3 <= FWD_ATOL and same
+    return ok
+
+
+def device_kernels(fn):
+    """Names of the device activities (kernels, copies) that one call of
+    ``fn`` runs, as ``torch.profiler`` traces them, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def check_one_kernel_per_call(dev, gen):
+    """B1 at (402, 1) and B3 at (201, 24) each run one device kernel per
+    call.  -> ok."""
+    gx = _normal(gen, (402, 1, 4 * H), 0.5, dev)
+    g1 = _normal(gen, (201, 24, 4 * H), 0.5, dev)
+    w = _uniform(gen, (H, 4 * H), H ** -0.5, dev)
+    w2 = _uniform(gen, (2 * H, 4 * H), H ** -0.5, dev)
+    b2 = _uniform(gen, (4 * H,), H ** -0.5, dev)
+    z1 = torch.zeros((1, H), device=dev)
+    z24 = torch.zeros((24, H), device=dev)
+    ok = True
+    for name, fn in (
+            ("lstm_fwd", lambda: K.lstm_fwd(gx, w, z1, z1)),
+            ("lstm_stack2_fwd",
+             lambda: K.lstm_stack2_fwd(g1, w, w2, b2, z24, z24, z24, z24))):
+        names = device_kernels(fn)
+        print(f"  {name}: {len(names)} device kernel(s) in one call: {names}")
+        ok = ok and len(names) == 1
+    return ok
 
 
 def print_times(label, res):
     for name, r in res.items():
-        print(f"  {name}{label}: kernel {r['ms']:.3f} ms, plain "
+        print(f"  {name}{label}: kernel {r['ms']:.3f} ms "
+              f"({r['ms'] * 1e3 / r['seq']:.2f} µs per time step), plain "
               f"{r['plain_ms']:.3f} ms, cuDNN {r['library_ms']:.3f} ms, "
               f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
@@ -431,7 +511,10 @@ def main():
     ok_s24, stack24 = check_stack2(dev, gen, 201, 24)
     # T=201, B=8: the inverse model's training shape (201 mel frames)
     ok_ci8, core_inv8 = check_core(dev, gen, 201, 8)
-    ok = ok_c and ok_c8 and ok_s1 and ok_s4 and ok_s24 and ok_ci8
+    ok_edges = check_forward_edges(dev, gen)
+    ok_one = check_one_kernel_per_call(dev, gen)
+    ok = (ok_c and ok_c8 and ok_s1 and ok_s4 and ok_s24 and ok_ci8
+          and ok_edges and ok_one)
     results = {**core, **stack}
     for name in core:
         merge_errors(name, results, core8, core_inv8)

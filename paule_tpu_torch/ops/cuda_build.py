@@ -3,9 +3,10 @@
 A :class:`CudaLibrary` compiles its source with ``nvcc`` for ``sm_90a`` on
 first use into ``paule_tpu_torch/_build/`` (rebuilt when the source
 changes), loads it with ``ctypes`` and launches its entry points.  Every
-entry point has the same plain C interface: ``n`` device pointers, the
-three sizes ``T, B, H``, the CUDA stream; it returns ``cudaGetLastError()``.
-Nothing is built or loaded at import.
+entry point has a plain C interface: device pointers, then ints (the sizes
+``T, B, H`` and, for the persistent kernels, their launch plan), then the
+CUDA stream; it returns the CUDA error of its launch.  Nothing is built or
+loaded at import.
 """
 
 import ctypes
@@ -23,6 +24,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
+#: CUDA errors an entry point returns before it launches, by number
+_ERRORS = {
+    1: " (cudaErrorInvalidValue: sizes or launch plan out of range)",
+    720: " (cudaErrorCooperativeLaunchTooLarge: the grid of a persistent "
+         "kernel cannot be co-resident on the card)",
+}
+
+
 def _nvcc():
     found = shutil.which("nvcc")
     if found:
@@ -37,7 +46,8 @@ def _nvcc():
 
 class CudaLibrary:
     """``csrc/<source>`` built into ``_build/lib<stem>.so``; ``entry_points``
-    maps each C function to its number of pointer arguments."""
+    maps each C function to its numbers of pointer and int arguments,
+    ``(n_ptr, n_int)``."""
 
     def __init__(self, source, entry_points):
         self.source = os.path.join(_PKG, "csrc", source)
@@ -82,23 +92,23 @@ class CudaLibrary:
             if self._lib is None:
                 lib = ctypes.CDLL(self.build())
                 p, i = ctypes.c_void_p, ctypes.c_int
-                for name, n_ptr in self.entry_points.items():
+                for name, (n_ptr, n_int) in self.entry_points.items():
                     fn = getattr(lib, name)
-                    fn.argtypes = [p] * n_ptr + [i, i, i, p]
+                    fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
                     fn.restype = i
                 self._lib = lib
         return self._lib
 
-    def launch(self, fn_name, device, tensors, dims):
+    def launch(self, fn_name, device, tensors, ints):
         """Call ``fn_name`` on the current stream of ``device`` with the
-        tensors' pointers and ``dims = (T, B, H)``; raises on a CUDA
-        error."""
+        tensors' pointers and the ``ints``; raises on a CUDA error."""
         fn = getattr(self._load(), fn_name)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*[t.data_ptr() for t in tensors], *dims, stream)
+            rc = fn(*[t.data_ptr() for t in tensors], *ints, stream)
         if rc != 0:
-            raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
+            raise RuntimeError(f"{fn_name} failed: CUDA error {rc}"
+                               + _ERRORS.get(rc, ""))
 
 
 def check_tensor(name, t, shape, device):

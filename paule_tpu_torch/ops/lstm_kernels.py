@@ -16,19 +16,142 @@ through the kernel.  The kernel library is built with ``nvcc`` on first use
 into ``paule_tpu_torch/_build/`` and rebuilt when the source changes
 (:mod:`.cuda_build`).
 
+B1 and B3 are persistent kernels: one cooperative launch per call, whose
+blocks must all be co-resident on the card.  Their launch plan
+(:func:`fwd_plan`, :func:`stack2_plan`) is computed here from the card's SM
+count and opt-in shared memory per block; a grid that cannot be co-resident
+raises (CUDA error ``cudaErrorCooperativeLaunchTooLarge``, 720).
+
 What bounds the kernels and what their design does about it is written at
 the top of ``csrc/lstm.cu``.
 """
+
+import collections
+import functools
 
 import torch
 
 from .cuda_build import CudaLibrary, check_tensor as _check
 
 LIBRARY = CudaLibrary("lstm.cu", {
-    "paule_lstm_fwd": 6, "paule_lstm_bwd": 7, "paule_lstm_stack2_fwd": 12,
-    "paule_lstm_stack2_bwd": 11})
+    "paule_lstm_fwd": (6, 9), "paule_lstm_bwd": (7, 3),
+    "paule_lstm_stack2_fwd": (14, 9), "paule_lstm_stack2_bwd": (11, 3)})
 build = LIBRARY.build
 _launch = LIBRARY.launch
+
+F32 = 4
+#: batch rows a warp carries in registers per pass over its weights; the
+#: persistent kernels are built for these
+ROWS_PER_PASS = (1, 4, 8, 16, 24)
+#: most hidden units (one warp each) a block of the persistent kernels owns
+MAX_UNITS = 12
+#: B3 streams each warp's weight rows through a ring of tiles in shared
+#: memory: 4 gate rows x 128 columns of float32 a tile, 2 to 8 tiles
+TILE_BYTES = F32 * 4 * 128
+MIN_STAGES, MAX_STAGES = 2, 8
+
+#: one cooperative launch: ``blocks`` blocks of ``units`` hidden units (B3:
+#: half the blocks per layer), ``rows`` batch rows per pass, ``chunk`` rows
+#: staged in shared memory at a time, ``stages`` tiles in each warp's weight
+#: ring (B3; 0 for B1), ``smem`` dynamic shared bytes a block
+LaunchPlan = collections.namedtuple("LaunchPlan",
+                                    "blocks units rows chunk stages smem")
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def _round_up(n, m):
+    return _ceil_div(n, m) * m
+
+
+def _pad4(n):
+    return _round_up(n, 4)
+
+
+def _chunk_and_rows(what, hidden, batch, free, row_bytes):
+    """Rows staged at a time and rows per pass: the staging buffer holds
+    the chunk rounded up to a whole pass (the kernels run every row of a
+    pass), within ``free`` bytes."""
+    fit = free // row_bytes
+    if fit < 1:
+        raise ValueError(f"{what} at H={hidden}, B={batch}: {free} bytes of "
+                         f"shared memory per block are left, no room for one "
+                         f"staged row of {row_bytes} bytes")
+    chunk = min(batch, fit)
+    rows = next(r for r in ROWS_PER_PASS
+                if r >= min(chunk, ROWS_PER_PASS[-1]))
+    if _round_up(chunk, rows) > fit:
+        rows = max(r for r in ROWS_PER_PASS if r <= fit)
+        chunk = min(chunk, fit // rows * rows)
+    return chunk, rows
+
+
+def _check_units(what, hidden, units):
+    if units > MAX_UNITS:
+        raise ValueError(f"{what} at H={hidden}: {units} units per block, "
+                         f"more than the kernel's {MAX_UNITS}")
+
+
+def fwd_plan(hidden, batch, n_sm, smem_limit):
+    """B1's launch plan on a card of ``n_sm`` SMs and ``smem_limit`` opt-in
+    shared bytes per block: as few units per block as keep one block per SM.
+    A block holds in shared memory its units' W_hh columns (``units x 4 x
+    Hp`` floats, ``Hp`` = H rounded up to a multiple of 4), their cell
+    states (``units x B``), the next step's input gates of one pass (``units
+    x 4 x rows``) and a chunk of staged ``h`` rows (``Hp`` floats each);
+    raises if not even one row fits."""
+    units = _ceil_div(hidden, n_sm)
+    _check_units("B1", hidden, units)
+    hp = _pad4(hidden)
+    fixed = F32 * units * (4 * hp + batch)
+    gates = F32 * units * 4                      # bytes per row of a pass
+    chunk, rows = _chunk_and_rows(
+        "B1", hidden, batch, smem_limit - fixed - gates * ROWS_PER_PASS[-1],
+        F32 * hp)
+    return LaunchPlan(_ceil_div(hidden, units), units, rows, chunk, 0,
+                      fixed + gates * rows
+                      + _round_up(chunk, rows) * F32 * hp)
+
+
+def stack2_plan(hidden, batch, n_sm, smem_limit):
+    """B3's launch plan: both layers' blocks, the same units per block, one
+    block per SM.  The weights stay in global memory (L2); a block holds in
+    shared memory each warp's weight ring, its units' cell states, layer 1's
+    next input gates of one pass and a chunk of staged ``[h1; h2]`` rows
+    (``2 Hp`` floats each): as many rows as fit beside the shortest ring,
+    then as deep a ring as fits."""
+    if n_sm < 2:
+        raise ValueError("B3 needs at least 2 SMs, one per layer")
+    units = _ceil_div(2 * hidden, n_sm)
+    while 2 * _ceil_div(hidden, units) > n_sm:
+        units += 1
+    _check_units("B3", hidden, units)
+    ring = units * TILE_BYTES
+    fixed = F32 * units * batch
+    gates = F32 * units * 4
+    row_bytes = F32 * 2 * _pad4(hidden)
+    chunk, rows = _chunk_and_rows(
+        "B3", hidden, batch,
+        smem_limit - fixed - gates * ROWS_PER_PASS[-1] - MIN_STAGES * ring,
+        row_bytes)
+    used = fixed + gates * rows + _round_up(chunk, rows) * row_bytes
+    stages = min(MAX_STAGES, (smem_limit - used) // ring)
+    return LaunchPlan(2 * _ceil_div(hidden, units), units, rows, chunk,
+                      stages, used + stages * ring)
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index):
+    """``(SM count, opt-in shared bytes per block)`` of CUDA device
+    ``index``, the inputs of the launch plans."""
+    props = torch.cuda.get_device_properties(index)
+    smem = getattr(props, "shared_memory_per_block_optin", None)
+    if smem is None:
+        raise RuntimeError("torch.cuda.get_device_properties gives no "
+                           "shared_memory_per_block_optin")
+    return props.multi_processor_count, smem
 
 
 def _split(x, hidden):
@@ -88,11 +211,11 @@ def lstm_fwd(gates_x, w_hh, h0, c0):
     _check("c0", c0, (batch, hidden), dev)
     if seq < 1:
         raise ValueError("empty sequence")
-    w_t = w_hh.t().contiguous()
+    plan = fwd_plan(hidden, batch, *device_limits(dev.index))
     hs = torch.empty((seq, batch, hidden), device=dev, dtype=torch.float32)
     cs = torch.empty_like(hs)
-    _launch("paule_lstm_fwd", dev, (gates_x, w_t, h0, c0, hs, cs),
-            (seq, batch, hidden))
+    _launch("paule_lstm_fwd", dev, (gates_x, w_hh, h0, c0, hs, cs),
+            (seq, batch, hidden, *plan))
     lstm_fwd.launches += 1
     return hs, cs
 
@@ -184,13 +307,16 @@ def lstm_stack2_fwd(gates1, w_hh1, w2, b2, h01, c01, h02, c02):
         _check(name, t, (batch, hidden), dev)
     if seq < 1:
         raise ValueError("empty sequence")
-    w1_t = w_hh1.t().contiguous()
-    w2_t = w2.t().contiguous()
+    plan = stack2_plan(hidden, batch, *device_limits(dev.index))
+    # scratch for the kernel's transposed, zero-padded weight rows
+    hp = _pad4(hidden)
+    w1_t = torch.empty((4 * hidden, hp), device=dev, dtype=torch.float32)
+    w2_t = torch.empty((4 * hidden, 2 * hp), device=dev, dtype=torch.float32)
     outs = [torch.empty((seq, batch, hidden), device=dev,
                         dtype=torch.float32) for _ in range(4)]
     _launch("paule_lstm_stack2_fwd", dev,
-            (gates1, w1_t, w2_t, b2, h01, c01, h02, c02, *outs),
-            (seq, batch, hidden))
+            (gates1, w_hh1, w2, b2, h01, c01, h02, c02, w1_t, w2_t, *outs),
+            (seq, batch, hidden, *plan))
     lstm_stack2_fwd.launches += 1
     return tuple(outs)
 

@@ -40,8 +40,8 @@ from ..ops.cuda_build import CudaLibrary, check_tensor
 from . import timing
 
 LIBRARY = CudaLibrary("ceiling_probes.cu", {
-    "paule_probe_fwd_wide": 7, "paule_probe_fwd_split": 6,
-    "paule_probe_bwd_wide": 9, "paule_probe_bwd_split": 7})
+    "paule_probe_fwd_wide": (7, 3), "paule_probe_fwd_split": (6, 3),
+    "paule_probe_bwd_wide": (9, 3), "paule_probe_bwd_split": (7, 3)})
 build = LIBRARY.build
 
 #: the TPU probe's shape (tools/kernel_ceiling_probes.py:268)

@@ -1,0 +1,133 @@
+"""Launch plans of the persistent forward kernels B1 and B3
+(``paule_tpu_torch.ops.lstm_kernels.fwd_plan`` / ``stack2_plan``).
+
+The kernels run only on the card; their plans are pure Python and are held
+here to what the kernels assume: every hidden unit owned by exactly one
+block (per layer for B3), a grid that fits one block per SM, and shared
+memory (B1: the W_hh slice, the cell states and a staged row chunk) under
+the card's per-block limit.
+"""
+
+import pytest
+
+from paule_tpu_torch.ops import lstm_kernels as K
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+#: an H100 SXM: 132 SMs, 227 KB of opt-in shared memory per block
+N_SM = 132
+SMEM = 232_448
+F32 = 4
+
+SHAPES = [(720, b) for b in (1, 4, 8, 24)] + [
+    (hidden, batch) for hidden in (5, 8, 12, 100) for batch in (1, 3, 13)]
+
+
+def _hp(hidden):
+    """H rounded up to a multiple of 4: the kernels' zero-padded rows."""
+    return -(-hidden // 4) * 4
+
+
+def _staged(plan):
+    """Rows the staging buffer holds: the chunk rounded up to a whole pass."""
+    return -(-plan.chunk // plan.rows) * plan.rows
+
+
+def _owners(plan, n_blocks, hidden):
+    """Block of each unit of one layer, from the blocks' unit ranges."""
+    owner = {}
+    for blk in range(n_blocks):
+        for u in range(blk * plan.units, min((blk + 1) * plan.units, hidden)):
+            assert u not in owner
+            owner[u] = blk
+    return owner
+
+
+def _check_common(plan, hidden, batch):
+    assert 1 <= plan.units <= K.MAX_UNITS
+    assert plan.blocks <= N_SM, "one block per SM keeps the grid co-resident"
+    assert plan.smem <= SMEM
+    assert 1 <= plan.chunk <= batch
+    assert plan.rows in K.ROWS_PER_PASS
+    assert plan.rows >= min(plan.chunk, K.ROWS_PER_PASS[-1])
+
+
+@pytest.mark.parametrize("hidden,batch", SHAPES)
+def test_fwd_plan_covers_every_unit_and_fits(hidden, batch):
+    plan = K.fwd_plan(hidden, batch, N_SM, SMEM)
+    _check_common(plan, hidden, batch)
+    owner = _owners(plan, plan.blocks, hidden)
+    assert sorted(owner) == list(range(hidden))
+    assert set(owner.values()) == set(range(plan.blocks)), "no idle block"
+    assert plan.stages == 0
+    w_slice = F32 * plan.units * 4 * _hp(hidden)
+    gates = F32 * plan.units * 4 * plan.rows     # prefetched input gates
+    assert plan.smem == (w_slice + F32 * plan.units * batch + gates
+                         + F32 * _staged(plan) * _hp(hidden))
+    assert w_slice + F32 * _hp(hidden) <= SMEM
+
+
+@pytest.mark.parametrize("hidden,batch", SHAPES)
+def test_stack2_plan_covers_every_unit_of_both_layers(hidden, batch):
+    plan = K.stack2_plan(hidden, batch, N_SM, SMEM)
+    _check_common(plan, hidden, batch)
+    assert plan.blocks % 2 == 0
+    for _layer in range(2):
+        owner = _owners(plan, plan.blocks // 2, hidden)
+        assert sorted(owner) == list(range(hidden))
+        assert set(owner.values()) == set(range(plan.blocks // 2))
+    assert K.MIN_STAGES <= plan.stages <= K.MAX_STAGES
+    assert plan.smem == (F32 * plan.units * (batch + 4 * plan.rows)
+                         + F32 * _staged(plan) * 2 * _hp(hidden)
+                         + plan.stages * plan.units * K.TILE_BYTES)
+
+
+def test_plans_at_the_main_path_shapes():
+    """H=720 on 132 SMs: B1 runs 120 blocks of 6 units holding 69,120 bytes
+    of W_hh each; B3 runs 66 blocks per layer; both stage every row of the
+    batch at once, up to B=24."""
+    for batch in (1, 8, 24):
+        b1 = K.fwd_plan(720, batch, N_SM, SMEM)
+        assert (b1.blocks, b1.units, b1.chunk) == (120, 6, batch)
+        b3 = K.stack2_plan(720, batch, N_SM, SMEM)
+        assert (b3.blocks, b3.units, b3.chunk) == (132, 11, batch)
+    assert K.fwd_plan(720, 1, N_SM, SMEM).smem - F32 * (6 + 720 + 24) == 69_120
+
+
+def test_large_batches_are_staged_in_chunks():
+    """A batch larger than shared memory holds is staged in chunks of whole
+    passes, as many as fit."""
+    plan = K.fwd_plan(720, 1000, N_SM, SMEM)
+    assert plan.chunk < 1000 and plan.chunk % plan.rows == 0
+    assert plan.smem <= SMEM < plan.smem + F32 * plan.rows * 720
+    plan = K.stack2_plan(720, 1000, N_SM, SMEM)
+    assert plan.chunk < 1000 and plan.chunk % plan.rows == 0
+    assert plan.stages == K.MIN_STAGES
+    assert plan.smem <= SMEM < plan.smem + F32 * plan.rows * 2 * 720
+
+
+def test_stack2_ring_deepens_as_the_chunk_shrinks():
+    """B3 gives what the staged rows leave to each warp's weight ring."""
+    stages = [K.stack2_plan(720, b, N_SM, SMEM).stages for b in (1, 8, 24)]
+    assert stages == sorted(stages, reverse=True)
+    assert stages[0] == K.MAX_STAGES
+
+
+def test_odd_sm_counts_keep_the_stack_grid_co_resident():
+    for n_sm in (121, 125, 127, 131):
+        plan = K.stack2_plan(720, 8, n_sm, SMEM)
+        assert plan.blocks <= n_sm
+        assert plan.blocks // 2 * plan.units >= 720
+
+
+@pytest.mark.parametrize("plan_fn,hidden,batch,n_sm,match", [
+    # B1's weight slice alone exceeds a block's shared memory
+    (K.fwd_plan, 1500, 1, N_SM, "no room"),
+    # too few SMs: more units per block than the kernel has warps
+    (K.fwd_plan, 720, 1, 8, "units per block"),
+    (K.stack2_plan, 720, 1, 16, "units per block"),
+    (K.stack2_plan, 8, 1, 1, "2 SMs"),
+])
+def test_plan_raises_when_the_grid_cannot_fit(plan_fn, hidden, batch, n_sm,
+                                              match):
+    with pytest.raises(ValueError, match=match):
+        plan_fn(hidden, batch, n_sm, SMEM)

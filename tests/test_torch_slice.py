@@ -106,6 +106,28 @@ def test_plan_resynth_continue_learning_matches_jax(target, case):
         assert len(port.continue_data) == 3 + 2 * 4
 
 
+def test_replay_rows_own_their_memory(target):
+    """Every produced row that continue-learning keeps in the replay buffer
+    owns its storage: a view would keep its outer iteration's whole batch
+    of snapshots (or mels) alive, so the memory held would grow with the
+    outer iterations instead of being bounded by the buffer's cap."""
+    port = Paule(device="cpu", dtype=torch.float64, seed=7,
+                 continue_data={"cp_norm": []})
+    try:
+        port.plan_resynth(target_acoustic=target, objective="acoustic",
+                          n_outer=2, n_inner=2, log_ii=1,
+                          continue_learning=True, n_batches=1, batch_size=2,
+                          n_epochs=1, verbose=False)
+    finally:
+        port.close()
+    for col in ("cp_norm", "melspec_norm_synthesized"):
+        rows = port.continue_data.data[col]
+        assert len(rows) == 2 * 2
+        for row in rows:
+            assert torch.is_tensor(row)
+            assert row.untyped_storage().nbytes() == row.nbytes, col
+
+
 def test_wav_path_target_matches_sig_sr(target, tmp_path):
     """A WAV path plans like the ``(sig, sr)`` it holds after the 16-bit
     round trip."""
