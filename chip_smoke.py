@@ -10,9 +10,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    T=402 and T=201 with B=8 for the forward and inverse models' training
    steps), and times the
    kernel, the plain version and ``torch.nn.LSTM`` (cuDNN, a yardstick the
-   port never calls), with µs per time step; holds the persistent forward
-   kernels B1 and B3 also at edge shapes (T=1, a batch of 13 rows, H=100),
-   checks that two calls give bit-identical outputs, and counts with
+   port never calls), with µs per time step; holds the four persistent
+   kernels also at edge shapes (T=1, a batch of 13 rows, H=100), checks
+   that two calls give bit-identical outputs, and counts with
    ``torch.profiler`` that one call of each runs exactly one device kernel;
 3. runs the ceiling-probe entry point (``paule_tpu_torch.tools.
    kernel_ceiling_probes``): the four probe kernels against their plain
@@ -21,7 +21,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the in-repo release weights) on a synthesised target: a short plan
    without continue-learning, then the default call with continue-learning
    of both models at the reference budget (only ``n_outer`` cut); checks
-   the losses and that every kernel of each path launched during its run;
+   the losses and that every kernel of each path launched during its run,
+   and traces one more warm call with ``torch.profiler`` (not timed) for
+   the share of each phase's wall time in which the card was busy;
 5. holds short plans on the card (float32) against the CPU (float64),
    without and with continue-learning;
 6. prints one JSON line with the kernels' numbers and, last, one JSON line
@@ -30,6 +32,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Exits non-zero on any failure, and when no CUDA device is present.
 """
 
+import bisect
+import collections
 import json
 import sys
 import time
@@ -224,16 +228,17 @@ def identical(outs, again):
     return all(torch.equal(a, b) for a, b in zip(outs, again))
 
 
-#: (T, B, H) at which B1 and B3 are also held against their plain versions:
+#: (T, B, H) at which B1-B4 are also held against their plain versions:
 #: one step, a batch of 13 rows (a part-filled pass of rows), and H=100,
 #: which the units per block do not divide
 EDGE_SHAPES = ((1, 1, H), (1, 13, H), (37, 13, H), (23, 3, 100),
                (9, 13, 100))
 
 
-def check_forward_edges(dev, gen):
-    """B1 and B3 at :data:`EDGE_SHAPES`, with random initial carries,
-    against their plain versions and against a second call.  -> ok."""
+def check_edges(dev, gen):
+    """B1-B4 at :data:`EDGE_SHAPES`, with random inputs and initial
+    carries, against their plain versions (forward: max abs error;
+    backward: relative error) and against a second call.  -> ok."""
     ok = True
     for seq, batch, hidden in EDGE_SHAPES:
         gx = _normal(gen, (seq, batch, 4 * hidden), 0.5, dev)
@@ -241,18 +246,32 @@ def check_forward_edges(dev, gen):
         w2 = _uniform(gen, (2 * hidden, 4 * hidden), hidden ** -0.5, dev)
         b2 = _uniform(gen, (4 * hidden,), hidden ** -0.5, dev)
         carries = [_normal(gen, (batch, hidden), 0.1, dev) for _ in range(4)]
-        args1 = (gx, w, *carries[:2])
-        args3 = (gx, w, w2, b2, *carries)
-        outs1 = K.lstm_fwd(*args1)
-        outs3 = K.lstm_stack2_fwd(*args3)
-        err1 = max_abs(zip(outs1, K.lstm_fwd_plain(*args1)))
-        err3 = max_abs(zip(outs3, K.lstm_stack2_fwd_plain(*args3)))
-        same = (identical(outs1, K.lstm_fwd(*args1))
-                and identical(outs3, K.lstm_stack2_fwd(*args3)))
-        print(f"  edge T={seq} B={batch} H={hidden}: B1 max|err| {err1:.3e}, "
-              f"B3 {err3:.3e} (tol {FWD_ATOL}); two calls bit-identical: "
-              f"{same}")
-        ok = ok and err1 <= FWD_ATOL and err3 <= FWD_ATOL and same
+        acts = [K.activate(_normal(gen, (seq, batch, 4 * hidden), 1.0, dev),
+                           hidden) for _ in range(2)]
+        c_prev = [_normal(gen, (seq, batch, hidden), 0.5, dev)
+                  for _ in range(2)]
+        ghs = _normal(gen, (seq, batch, hidden), 1.0, dev)
+        calls = {
+            "B1": (K.lstm_fwd, K.lstm_fwd_plain, (gx, w, *carries[:2])),
+            "B2": (K.lstm_bwd, K.lstm_bwd_plain, (acts[0], c_prev[0], ghs, w)),
+            "B3": (K.lstm_stack2_fwd, K.lstm_stack2_fwd_plain,
+                   (gx, w, w2, b2, *carries)),
+            "B4": (K.lstm_stack2_bwd, K.lstm_stack2_bwd_plain,
+                   (*acts, *c_prev, ghs, w, w2)),
+        }
+        errs, same = {}, True
+        for name, (kernel, plain, args) in calls.items():
+            outs = kernel(*args)
+            pairs = list(zip(outs, plain(*args)))
+            errs[name] = (max_abs(pairs) if name in ("B1", "B3")
+                          else max(rel_err(a, b) for a, b in pairs))
+            same = same and identical(outs, kernel(*args))
+        print(f"  edge T={seq} B={batch} H={hidden}: max|err| B1 "
+              f"{errs['B1']:.3e}, B3 {errs['B3']:.3e} (tol {FWD_ATOL}); rel "
+              f"err B2 {errs['B2']:.3e}, B4 {errs['B4']:.3e} (tol "
+              f"{GRAD_RTOL}); two calls bit-identical: {same}")
+        ok = (ok and same and max(errs["B1"], errs["B3"]) <= FWD_ATOL
+              and max(errs["B2"], errs["B4"]) <= GRAD_RTOL)
     return ok
 
 
@@ -271,8 +290,8 @@ def device_kernels(fn):
 
 
 def check_one_kernel_per_call(dev, gen):
-    """B1 at (402, 1) and B3 at (201, 24) each run one device kernel per
-    call.  -> ok."""
+    """B1 at (402, 1), B2 at (402, 8), B3 at (201, 24) and B4 at (201, 1)
+    each run one device kernel per call.  -> ok."""
     gx = _normal(gen, (402, 1, 4 * H), 0.5, dev)
     g1 = _normal(gen, (201, 24, 4 * H), 0.5, dev)
     w = _uniform(gen, (H, 4 * H), H ** -0.5, dev)
@@ -280,15 +299,79 @@ def check_one_kernel_per_call(dev, gen):
     b2 = _uniform(gen, (4 * H,), H ** -0.5, dev)
     z1 = torch.zeros((1, H), device=dev)
     z24 = torch.zeros((24, H), device=dev)
+    acts8 = K.activate(_normal(gen, (402, 8, 4 * H), 1.0, dev), H)
+    c8, g8 = (_normal(gen, (402, 8, H), 0.5, dev) for _ in range(2))
+    acts1 = [K.activate(_normal(gen, (201, 1, 4 * H), 1.0, dev), H)
+             for _ in range(2)]
+    c1 = [_normal(gen, (201, 1, H), 0.5, dev) for _ in range(3)]
     ok = True
     for name, fn in (
             ("lstm_fwd", lambda: K.lstm_fwd(gx, w, z1, z1)),
+            ("lstm_bwd", lambda: K.lstm_bwd(acts8, c8, g8, w)),
             ("lstm_stack2_fwd",
-             lambda: K.lstm_stack2_fwd(g1, w, w2, b2, z24, z24, z24, z24))):
+             lambda: K.lstm_stack2_fwd(g1, w, w2, b2, z24, z24, z24, z24)),
+            ("lstm_stack2_bwd",
+             lambda: K.lstm_stack2_bwd(*acts1, *c1, w, w2))):
         names = device_kernels(fn)
         print(f"  {name}: {len(names)} device kernel(s) in one call: {names}")
         ok = ok and len(names) == 1
     return ok
+
+
+def _union(intervals):
+    """Sorted, disjoint cover of ``(start, end)`` intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(union, a, b):
+    """Length of ``[a, b)`` that the disjoint sorted ``union`` covers."""
+    i = max(bisect.bisect_right([u[0] for u in union], a) - 1, 0)
+    total = 0.0
+    for lo, hi in union[i:]:
+        if lo >= b:
+            break
+        total += max(0.0, min(hi, b) - max(lo, a))
+    return total
+
+
+def device_busy_share(paule, kw, untraced):
+    """One more ``plan_resynth(**kw)`` call under ``torch.profiler``, not
+    timed: per phase (the ``plan_resynth.<phase>`` ranges of
+    ``paule_tpu_torch.api``), the seconds in which the card ran a kernel or
+    a copy, as a share of the traced call's phase wall time and of the
+    untraced call's (``untraced``: its ``last_planning_timings``; the
+    profiler slows the host, not the card).  -> {phase: share of the traced
+    wall}."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        paule.plan_resynth(**kw)
+        torch.cuda.synchronize()
+    windows, device = collections.defaultdict(list), []
+    for e in prof.events():
+        span = (e.time_range.start, e.time_range.end)
+        if e.name.startswith("plan_resynth."):
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                windows[e.name.split(".", 1)[1]].append(span)
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            device.append(span)
+    busy = _union(device)
+    share = {}
+    for phase, spans in windows.items():
+        wall = sum(b - a for a, b in spans)
+        on = sum(_covered(busy, a, b) for a, b in spans)
+        share[phase] = on / wall
+        plain = untraced[phase]
+        print(f"  {phase}: device busy {on / 1e6:.3f} s, {share[phase]:.1%} "
+              f"of the traced {wall / 1e6:.3f} s, {on / 1e6 / plain:.1%} of "
+              f"the untraced {plain:.3f} s")
+    return share
 
 
 def print_times(label, res):
@@ -430,7 +513,13 @@ def drive_continue_learning(paule, target, step_ms):
     print(f"  inv_model_loss {r.inv_model_loss}")
     print(f"  launches during the run: {launches}; without continue-"
           f"learning: {planning_only}")
+    print("  device-busy share per phase (one traced warm call):")
+    busy = device_busy_share(paule, kw, t)
     ok = check_losses(r, n_outer * n_inner, 402, "continue-learning path")
+    if not {"planning", "continue_learning"} <= busy.keys():
+        print("continue-learning path: the trace shows no phase ranges",
+              file=sys.stderr)
+        ok = False
     model_losses = r.pred_model_loss + r.inv_model_loss
     if (len(r.pred_model_loss) != 10 * n_outer
             or len(r.inv_model_loss) != 10 * n_outer
@@ -511,7 +600,7 @@ def main():
     ok_s24, stack24 = check_stack2(dev, gen, 201, 24)
     # T=201, B=8: the inverse model's training shape (201 mel frames)
     ok_ci8, core_inv8 = check_core(dev, gen, 201, 8)
-    ok_edges = check_forward_edges(dev, gen)
+    ok_edges = check_edges(dev, gen)
     ok_one = check_one_kernel_per_call(dev, gen)
     ok = (ok_c and ok_c8 and ok_s1 and ok_s4 and ok_s24 and ok_ci8
           and ok_edges and ok_one)

@@ -12,6 +12,7 @@ numerically exact there (``paule_tpu/api.py:122-146``, ``:935-955``), so the
 results are the same.
 """
 
+import contextlib
 import os
 import random
 import time
@@ -32,6 +33,16 @@ from .planning.results import (BestSynthesisAcoustic, BestSynthesisSemantic,
                                PlanningResults)
 from .planning.trainer import ModelTrainer, ReplayBuffer, train_epochs
 from .release import load_into, load_release
+
+
+@contextlib.contextmanager
+def _phase(timings, name):
+    """Adds the wall time of the block to ``timings[name]`` and marks it as
+    ``plan_resynth.<name>`` in a ``torch.profiler`` trace."""
+    t0 = time.perf_counter()
+    with torch.profiler.record_function(f"plan_resynth.{name}"):
+        yield
+    timings[name] += time.perf_counter() - t0
 
 
 def _np(t):
@@ -290,96 +301,94 @@ class Paule:
         start = time.perf_counter()
 
         for _ii_outer in range(n_outer):
-            t0 = time.perf_counter()
-            seg = engine.plan_segment(
-                models, xx, optimizer, target_mel_dev, target_semvec_dev,
-                n_steps=n_inner, objective=objective,
-                log_semantics=log_semantics, constraints=constraints,
-                log_every=log_ii)
-            subs = engine.SubLosses(*(_np(s) for s in seg["sub_losses"]))
-            snapshots = _np(seg["xx_pre"][:, 0])
-            pred_mels = _np(seg["pred_mel"][:, 0])
-            pred_semvecs = (_np(seg["pred_semvec"][:, 0]) if want_semvec
-                            else None)
-            grads = _np(seg["grads"]) if log_gradients else None
-            grad_ext = (_np(seg["grad_max"]), _np(seg["grad_min"]))
-            for s in range(n_segments):
-                logs["planned_loss_steps"].append(float(subs.total[s]))
-                logs["planned_mel_loss_steps"].append(float(subs.mel_loss[s]))
-                logs["vel_loss_steps"].append(float(subs.velocity_loss[s]))
-                logs["jerk_loss_steps"].append(float(subs.jerk_loss[s]))
-                if want_semvec:
-                    logs["pred_semvec_loss_steps"].append(
-                        float(subs.semvec_loss[s]))
-                if log_gradients:
-                    logs["grad_steps"].append(grads[s])
-                if verbose:
-                    if grad_ext[0][s] > 10:
-                        print("WARNING: gradient is larger than 10")
-                    if grad_ext[1][s] < -10:
-                        print("WARNING: gradient is smaller than -10")
-                    print(f"Iteration {s * log_ii + log_ii - 1}")
-                    print("Planned Loss: ", float(subs.total[s]))
-                    print("Mel Loss: ", float(subs.mel_loss[s]))
-                    print("Vel Loss: ", float(subs.velocity_loss[s]))
-                    print("Jerk Loss: ", float(subs.jerk_loss[s]))
-                    print("Local Linear Loss: ",
-                          float(subs.local_linear_loss[s]))
-            timings["planning"] += time.perf_counter() - t0
-
-            t0 = time.perf_counter()
-            sigs, sr = self._synthesize(snapshots)
-            sig = sigs[-1]
-            if log_signals:
-                logs["sig_steps"].extend(list(sigs))
-            timings["synthesis"] += time.perf_counter() - t0
-
-            t0 = time.perf_counter()
-            pm, prod_mels_dev = self._prod_metrics(
-                sigs, target_mel_dev, target_semvec_dev, want_semvec)
-            prod_mel = pm["prod_mel"][-1]
-            prod_semvecs = []
-            for s in range(n_segments):
-                prod_loss = float(pm["prod_loss"][s])
-                logs["prod_loss_steps"].append(prod_loss)
-                if verbose:
-                    print("Produced Mel Loss: ", prod_loss)
-                new_ac = BestSynthesisAcoustic(
-                    prod_loss, snapshots[s], sigs[s], pm["prod_mel"][s],
-                    pred_mels[s])
-                if self.best_synthesis_acoustic.mel_loss > new_ac.mel_loss:
-                    self.best_synthesis_acoustic = new_ac
-                if want_semvec:
-                    prod_semvec_loss = float(pm["prod_semvec_loss"][s])
-                    logs["prod_semvec_loss_steps"].append(prod_semvec_loss)
-                    prod_semvecs.append(pm["prod_semvec"][s])
+            with _phase(timings, "planning"):
+                seg = engine.plan_segment(
+                    models, xx, optimizer, target_mel_dev, target_semvec_dev,
+                    n_steps=n_inner, objective=objective,
+                    log_semantics=log_semantics, constraints=constraints,
+                    log_every=log_ii)
+                subs = engine.SubLosses(*(_np(s) for s in seg["sub_losses"]))
+                snapshots = _np(seg["xx_pre"][:, 0])
+                pred_mels = _np(seg["pred_mel"][:, 0])
+                pred_semvecs = (_np(seg["pred_semvec"][:, 0]) if want_semvec
+                                else None)
+                grads = _np(seg["grads"]) if log_gradients else None
+                grad_ext = (_np(seg["grad_max"]), _np(seg["grad_min"]))
+                for s in range(n_segments):
+                    logs["planned_loss_steps"].append(float(subs.total[s]))
+                    logs["planned_mel_loss_steps"].append(
+                        float(subs.mel_loss[s]))
+                    logs["vel_loss_steps"].append(float(subs.velocity_loss[s]))
+                    logs["jerk_loss_steps"].append(float(subs.jerk_loss[s]))
+                    if want_semvec:
+                        logs["pred_semvec_loss_steps"].append(
+                            float(subs.semvec_loss[s]))
+                    if log_gradients:
+                        logs["grad_steps"].append(grads[s])
                     if verbose:
-                        print("Produced Semvec Loss: ", prod_semvec_loss)
-                    new_sem = BestSynthesisSemantic(
-                        prod_semvec_loss, snapshots[s], sigs[s],
-                        pm["prod_semvec"][s], pred_semvecs[s])
-                    if (self.best_synthesis_semantic.semvec_loss
-                            > new_sem.semvec_loss):
-                        self.best_synthesis_semantic = new_sem
-            logs["prod_mel_steps"].append(list(pm["prod_mel"]))
-            logs["pred_mel_steps"].append(list(pred_mels))
-            logs["pred_semvec_steps"].append(
-                list(pred_semvecs) if want_semvec else [])
-            logs["prod_semvec_steps"].append(prod_semvecs)
-            if log_cps:
-                logs["cp_steps"].append(list(snapshots))
-            timings["metrics"] += time.perf_counter() - t0
+                        if grad_ext[0][s] > 10:
+                            print("WARNING: gradient is larger than 10")
+                        if grad_ext[1][s] < -10:
+                            print("WARNING: gradient is smaller than -10")
+                        print(f"Iteration {s * log_ii + log_ii - 1}")
+                        print("Planned Loss: ", float(subs.total[s]))
+                        print("Mel Loss: ", float(subs.mel_loss[s]))
+                        print("Vel Loss: ", float(subs.velocity_loss[s]))
+                        print("Jerk Loss: ", float(subs.jerk_loss[s]))
+                        print("Local Linear Loss: ",
+                              float(subs.local_linear_loss[s]))
+
+            with _phase(timings, "synthesis"):
+                sigs, sr = self._synthesize(snapshots)
+                sig = sigs[-1]
+                if log_signals:
+                    logs["sig_steps"].extend(list(sigs))
+
+            with _phase(timings, "metrics"):
+                pm, prod_mels_dev = self._prod_metrics(
+                    sigs, target_mel_dev, target_semvec_dev, want_semvec)
+                prod_mel = pm["prod_mel"][-1]
+                prod_semvecs = []
+                for s in range(n_segments):
+                    prod_loss = float(pm["prod_loss"][s])
+                    logs["prod_loss_steps"].append(prod_loss)
+                    if verbose:
+                        print("Produced Mel Loss: ", prod_loss)
+                    new_ac = BestSynthesisAcoustic(
+                        prod_loss, snapshots[s], sigs[s], pm["prod_mel"][s],
+                        pred_mels[s])
+                    if self.best_synthesis_acoustic.mel_loss > new_ac.mel_loss:
+                        self.best_synthesis_acoustic = new_ac
+                    if want_semvec:
+                        prod_semvec_loss = float(pm["prod_semvec_loss"][s])
+                        logs["prod_semvec_loss_steps"].append(prod_semvec_loss)
+                        prod_semvecs.append(pm["prod_semvec"][s])
+                        if verbose:
+                            print("Produced Semvec Loss: ", prod_semvec_loss)
+                        new_sem = BestSynthesisSemantic(
+                            prod_semvec_loss, snapshots[s], sigs[s],
+                            pm["prod_semvec"][s], pred_semvecs[s])
+                        if (self.best_synthesis_semantic.semvec_loss
+                                > new_sem.semvec_loss):
+                            self.best_synthesis_semantic = new_sem
+                logs["prod_mel_steps"].append(list(pm["prod_mel"]))
+                logs["pred_mel_steps"].append(list(pred_mels))
+                logs["pred_semvec_steps"].append(
+                    list(pred_semvecs) if want_semvec else [])
+                logs["prod_semvec_steps"].append(prod_semvecs)
+                if log_cps:
+                    logs["cp_steps"].append(list(snapshots))
 
             if continue_learning and n_segments:
-                t0 = time.perf_counter()
-                self._continue_learning(
-                    seg["xx_pre"][:, 0], prod_mels_dev, target_semvec_dev[0],
-                    logs, continue_learning_inv=continue_learning_inv,
-                    add_training_data_pred=add_training_data_pred,
-                    add_training_data_inv=add_training_data_inv,
-                    n_batches=n_batches, batch_size=batch_size,
-                    n_epochs=n_epochs, verbose=verbose)
-                timings["continue_learning"] += time.perf_counter() - t0
+                with _phase(timings, "continue_learning"):
+                    self._continue_learning(
+                        seg["xx_pre"][:, 0], prod_mels_dev,
+                        target_semvec_dev[0], logs,
+                        continue_learning_inv=continue_learning_inv,
+                        add_training_data_pred=add_training_data_pred,
+                        add_training_data_inv=add_training_data_inv,
+                        n_batches=n_batches, batch_size=batch_size,
+                        n_epochs=n_epochs, verbose=verbose)
 
         # ---------------- final results ----------------
         with torch.no_grad():

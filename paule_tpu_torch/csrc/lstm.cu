@@ -20,15 +20,17 @@
 // partners add the same two values), with no atomics, so runs are
 // bit-reproducible.
 //
-// The forward kernels (B1, B3) are persistent: one cooperative launch per
-// call, with every block co-resident, loops over time inside the kernel and
-// meets the other blocks at a grid barrier (cooperative_groups' grid sync)
-// after each step, as the TPU kernel loops inside its program.  This removes
-// the per-step launch, which set their pace when the kernel boundary was the
-// barrier (~11.6 us per step at B=1 on an H100, against ~3.1 us as one
-// launch).  Per step a block stages the previous hidden rows it needs
-// (h_{t-1}; for layer 2 of B3 [h1_t; h2_{t-1}]) in shared memory, in row
-// chunks, and one device routine (cell_rows) runs the cell step of each
+// All four kernels are persistent: one cooperative launch per call, with
+// every block co-resident, loops over time inside the kernel and meets the
+// other blocks at a grid barrier (cooperative_groups' grid sync) after each
+// step, as the TPU kernel loops inside its program.  This removes the
+// per-step launch, which set their pace when the kernel boundary was the
+// barrier (B1: ~11.6 us per step at B=1 on an H100, against ~3.1 us as one
+// launch).
+//
+// Forward (B1, B3).  Per step a block stages the previous hidden rows it
+// needs (h_{t-1}; for layer 2 of B3 [h1_t; h2_{t-1}]) in shared memory, in
+// row chunks, and one device routine (cell_rows) runs the cell step of each
 // unit over every staged row: a lane takes its own
 // float4 of each 128-column tile of the unit's four weight rows and uses it
 // on R batch rows held in registers (R = 1, 4, 8, 16 or 24 by batch), reads
@@ -59,37 +61,62 @@
 //   line, so a stale L1 line could hold the next step's first values.
 // * The launch plan (blocks, units per block, rows per pass, row-chunk size,
 //   dynamic shared bytes) comes from the Python wrapper
-//   (ops/lstm_kernels.py: fwd_plan, stack2_plan); the entry point checks with
-//   the occupancy API that the grid can be co-resident and returns
-//   cudaErrorCooperativeLaunchTooLarge if not, before anything is launched.
+//   (ops/lstm_kernels.py: fwd_plan, stack2_plan, bwd_plan, stack2_bwd_plan);
+//   the entry point checks with the occupancy API that the grid can be
+//   co-resident and returns cudaErrorCooperativeLaunchTooLarge if not,
+//   before anything is launched.
 //
-// The backward kernels (B2, B4) still launch once per time step, looped
-// inside the C entry point: the kernel boundary is their grid barrier.  They
-// fuse the recurrent product into the start of the next step: each warp
-// forms its unit's slice of dgates_{t+1} @ W_hh^T from the full previous
-// dgates (W_hh as is, H x 4H, one contiguous row per dot product), then
-// writes its own dgates_t columns; B4 runs the two-layer wavefront, T + 1
-// launches.
+// Backward (B2, B4): the reverse recurrence, t = T-1 down to 0.  A warp owns
+// hidden unit u; its recurrent cotangent is one dot product per batch row
+// against row u of the weights in their (H, 4H) layout, which is contiguous,
+// so no transposed scratch is needed: dh[b] = extra[b] + W[u, :] .
+// dgates_{t+1}[b, :].  One device routine (bwd_rows, the counterpart of
+// cell_rows) runs it over the staged dgates rows: a lane takes its own float4
+// of each 128-column tile of the weight row and of R batch rows, with no
+// branch between rows; warp_sums adds the lanes' sums in a fixed order; the
+// lane of row b then runs the gate-gradient step (cell_bwd) and writes
+// dgates[b, qH + u], q < 4.  Each unit's cell-gradient carry stays in shared
+// memory for the whole sequence, the step's own inputs (acts, cs_prev, ghs)
+// are prefetched across the barrier, and dgates_{t+1}, which other blocks
+// wrote, is staged through L2.  This is the owner layout: it stages a whole
+// dgates row (4H floats) per batch row after each barrier.  It was taken
+// over P2's wide layout (csrc/ceiling_probes.cu), which exchanges only dh
+// (H floats) but makes every block recompute every unit's gate gradients
+// from all of acts, because it needs no recomputation and at B=1 runs at
+// B1's ~3 us per step on an H100; at B=8 its staging (92 KB per block and
+// step) is what bounds it, and what the wide layout would cut.
+// * B2 holds its units' W_hh rows in shared memory for the whole sequence
+//   (6 units x 2880 x 4 B = 69 KB per block at H=720 on 132 SMs).  After
+//   step 0, one more barrier, then dh0 = dgates_0 . W_hh^T in the same
+//   launch; dc0 is the carry.
+// * B4 runs B3's wavefront backwards, T + 1 steps between T barriers:
+//   blocks [0, nb) run layer 2 at t = T-1-s, blocks [nb, 2nb) layer 1 at
+//   t = T-s.  Layer 2's dot is w2[H+u, :] . dgates2_{t+1}, layer 1's one dot
+//   of 8H, [w2[u, :] | w1[u, :]] . [dgates2_t | dgates1_{t+1}].  Like B3's,
+//   the weights (25 MB at H=720) stream every step from L2 through a
+//   per-warp cp.async ring, of 512-column tiles (2 KB, as B3's four-row
+//   tiles).  Measured on an H100: keeping the block's w2 rows resident
+//   instead (127 KB at 11 units) left room for only a 128-column ring and
+//   three staged 8H rows, so the stream had too few bytes in flight and a
+//   batch of 4 or more ran one row per pass (PERF.md).
 //
-// Kernels allocate nothing: every buffer, including the per-unit cell-state
-// carries of the backward kernels and B3's scratch rows, comes from the
-// Python wrapper.  Each entry point launches on the given stream and returns
-// the CUDA error of its launch (cudaGetLastError()).
+// Kernels allocate nothing: every buffer, including B3's scratch rows, comes
+// from the Python wrapper.  Each entry point launches on the given stream
+// and returns the CUDA error of its launch (cudaGetLastError()).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kUnits = 4;                // backward: hidden units per block
 constexpr int kWarp = 32;
-constexpr int kThreads = kUnits * kWarp;
-constexpr int kRows = 4;                 // backward: batch rows per pass
-constexpr int kMaxUnits = 12;            // forward: most units (warps) a block
+constexpr int kMaxUnits = 12;            // most units (warps) a block owns
 constexpr int kMaxThreads = kMaxUnits * kWarp;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -97,49 +124,9 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// acc[r] += row[0:n1] . v1[r*ld1 + 0:n1] + row[n1:n1+n2] . v2[r*ld2 + 0:n2]
-// for r < nr, computed by one warp; every lane ends with the same sums.
-__device__ __forceinline__ void warp_dot(const float* __restrict__ row,
-                                         const float* __restrict__ v1,
-                                         int ld1, int n1,
-                                         const float* __restrict__ v2,
-                                         int ld2, int n2, int nr, int lane,
-                                         float acc[kRows]) {
-  float part[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) part[r] = 0.0f;
-  for (int k = lane; k < n1; k += kWarp) {
-    const float w = row[k];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (r < nr) part[r] += w * v1[(size_t)r * ld1 + k];
-  }
-  for (int k = lane; k < n2; k += kWarp) {
-    const float w = row[n1 + k];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (r < nr) part[r] += w * v2[(size_t)r * ld2 + k];
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int off = kWarp / 2; off > 0; off >>= 1)
-      part[r] += __shfl_xor_sync(kFull, part[r], off);
-    acc[r] += part[r];
-  }
-}
-
-__device__ __forceinline__ float pick(const float v[kRows], int r) {
-  float out = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-    if (i == r) out = v[i];
-  return out;
-}
-
 // ------------------------------------------------- forward: shared routine
 constexpr int kTile = 4 * kWarp;         // reduction-axis columns per tile
-constexpr int kMinStages = 2;            // B3's weight ring, tiles per warp
+constexpr int kMinStages = 2;            // weight ring (B3, B4), tiles a warp
 constexpr int kMaxStages = 8;
 
 // One reduce-scatter stage at xor distance OFF over the 2 * half values
@@ -562,11 +549,371 @@ lstm_stack2_fwd_persistent(int T, int B, int H, int units, int chunk,
   }
 }
 
+// ------------------------------------------------ backward: shared routine
+constexpr int kIn = 6;   // floats per batch row in a warp's prefetch slot
+
+// Lane r < rows copies row r's inputs of one backward step of unit u into
+// slot[kIn r + j], asynchronously (issued before a grid barrier, the copy
+// overlaps it): j < 4 the activated gates acts[r, qH + u], 4 the previous
+// cell state, 5 the incoming hidden cotangent ghs[r, u] (where ghs is given).
+__device__ __forceinline__ void prefetch_inputs(float* slot, const float* acts,
+                                                const float* c_prev,
+                                                const float* ghs, int H,
+                                                int u, int rows, int lane) {
+  if (lane < rows) {
+    const size_t G = (size_t)4 * H;
+    float* s = slot + kIn * lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      cp_async4(s + q, acts + lane * G + (size_t)q * H + u);
+    cp_async4(s + 4, c_prev + (size_t)lane * H + u);
+    if (ghs) cp_async4(s + 5, ghs + (size_t)lane * H + u);
+  }
+}
+
+// The gate-gradient step of one unit and one batch row, shared by both
+// backward kernels: in = (activated gates i, f, g, o, previous cell state),
+// dh the hidden cotangent, dc_in the cell carry from the step after.  Writes
+// the four gate gradients d[qH], returns the carry for the step before.
+__device__ __forceinline__ float cell_bwd(const float (&in)[6], float dh,
+                                          float dc_in, float* d, int H) {
+  const float gi = in[0], gf = in[1], gg = in[2], go = in[3], cp = in[4];
+  const float tc = tanhf(gf * cp + gi * gg);
+  const float d_o = dh * tc;
+  const float dc = dc_in + dh * go * (1.0f - tc * tc);
+  d[0] = dc * gg * gi * (1.0f - gi);
+  d[H] = dc * cp * gf * (1.0f - gf);
+  d[2 * H] = dc * gi * (1.0f - gg * gg);
+  d[3 * H] = d_o * go * (1.0f - go);
+  return dc * gf;
+}
+
+// acc[r] += wv . x[r * x_ld + 0:4] for the R rows of a pass, with no branch
+// between rows (rows past the chunk hold finite stale values, whose sums the
+// caller drops).
+template <int R>
+__device__ __forceinline__ void fma_rows(float (&acc)[R], float4 wv,
+                                         const float* x, int x_ld) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float4 xv = *reinterpret_cast<const float4*>(x + (size_t)r * x_ld);
+    float a = acc[r];
+    a += wv.x * xv.x;
+    a += wv.y * xv.y;
+    a += wv.z * xv.z;
+    a += wv.w * xv.w;
+    acc[r] = a;
+  }
+}
+
+constexpr int kWide = 4 * kTile;         // B4's ring: columns per tile
+
+// B4's weight ring of one warp: tile j (kWide columns) of the unit's weight
+// row, the concatenation [row_a (Ka floats) | row_b] cut at K, into slot
+// j % stages, four float4 per lane; always one commit, as ring_issue.
+__device__ __forceinline__ void wide_ring_issue(float* ring, int stages,
+                                                int j, int n_tiles, int K,
+                                                int lane, const float* row_a,
+                                                int Ka, const float* row_b) {
+  if (j < n_tiles) {
+    float* slot = ring + (j % stages) * kWide + 4 * lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = j * kWide + q * kTile + 4 * lane;
+      if (c < K)
+        cp_async16(slot + q * kTile, c < Ka ? row_a + c : row_b + (c - Ka));
+    }
+  }
+  cp_async_commit();
+}
+
+// Per-lane partial sums, by one warp, of the unit's weight row w against
+// each of the R staged rows of a pass (x: rows of x_ld floats in shared
+// memory): acc[r] += w[0:K] . x[r, 0:K].  kRing false (B2): w = row_a, in
+// shared memory, read in place.  kRing true (B4): w = [row_a (Ka floats) |
+// row_b], in global memory, streamed tile by tile through the warp's ring
+// of `stages` slots of kWide floats (stages - 1 tiles in flight).  Either
+// way lane L takes columns 128 i + 4 L + 0..3 of every 128-column tile i,
+// in order.  K, Ka and x_ld are multiples of 4.
+template <int R, bool kRing>
+__device__ __forceinline__ void row_dots(float (&acc)[R], int lane,
+                                         const float* row_a, int Ka,
+                                         const float* row_b, int K,
+                                         float* ring, int stages,
+                                         const float* x, int x_ld) {
+  if constexpr (!kRing) {
+    for (int k = 4 * lane; k < K; k += kTile)
+      fma_rows<R>(acc, *reinterpret_cast<const float4*>(row_a + k), x + k,
+                  x_ld);
+  } else {
+    const int n_tiles = (K + kWide - 1) / kWide;
+    for (int j = 0; j < stages - 1; ++j)
+      wide_ring_issue(ring, stages, j, n_tiles, K, lane, row_a, Ka, row_b);
+    for (int i = 0; i < n_tiles; ++i) {
+      // tile i has landed; refill the slot this lane read one tile ago
+      cp_async_wait(stages - 2);
+      wide_ring_issue(ring, stages, i + stages - 1, n_tiles, K, lane, row_a,
+                      Ka, row_b);
+      const float* slot = ring + (i % stages) * kWide + 4 * lane;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = i * kWide + q * kTile + 4 * lane;
+        if (c < K)
+          fma_rows<R>(acc, *reinterpret_cast<const float4*>(slot + q * kTile),
+                      x + c, x_ld);
+      }
+    }
+    cp_async_wait(0);
+  }
+}
+
+// v[lane] for lane < R, by a branch-free select (other lanes get 0).
+template <int R>
+__device__ __forceinline__ float lane_value(const float (&v)[R], int lane) {
+  float out = 0.0f;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (i == lane) out = v[i];
+  return out;
+}
+
+// One backward cell step of hidden unit u, by one warp, over the n rows of a
+// chunk (x: the staged cotangent rows, allocated for n rounded up to a
+// multiple of R).  Row b's hidden cotangent is (ghs ? ghs[b * H + u] : 0)
+// plus the row_dots<R, kRing> of x[b]; the step reads acts[b * 4H + qH + u]
+// and c_prev[b * H + u], or, where `pre` is given, finds the first pass's
+// inputs there (prefetch_inputs).  dc_state[b] holds the row's cell carry;
+// the step writes dgates[b * 4H + qH + u], q < 4, and, where dc_out is
+// given, the new carry to dc_out[b * H + u].
+template <int R, bool kRing>
+__device__ __forceinline__ void bwd_rows(
+    int u, int lane, int H, int n, const float* row_a, int Ka,
+    const float* row_b, int K, float* ring, int stages, const float* x,
+    int x_ld, const float* acts, const float* c_prev, const float* ghs,
+    const float* pre, float* dc_state, float* dc_out, float* dgates) {
+  const size_t G = (size_t)4 * H;
+  for (int p0 = 0; p0 < n; p0 += R) {
+    const int nr = min(R, n - p0);
+    // the row's inputs, loaded before the product so that their latency
+    // overlaps it
+    float in[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (lane < nr) {
+      const int b = p0 + lane;
+      if (p0 == 0 && pre) {
+#pragma unroll
+        for (int j = 0; j < 5; ++j) in[j] = pre[kIn * lane + j];
+        if (ghs) in[5] = pre[kIn * lane + 5];
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) in[q] = acts[b * G + (size_t)q * H + u];
+        in[4] = c_prev[(size_t)b * H + u];
+        if (ghs) in[5] = ghs[(size_t)b * H + u];
+      }
+    }
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+    row_dots<R, kRing>(acc, lane, row_a, Ka, row_b, K, ring, stages,
+                       x + (size_t)p0 * x_ld, x_ld);
+    warp_sums<R>(acc, lane);
+    const float rec = lane_value<R>(acc, lane);
+    if (lane < nr) {
+      const int b = p0 + lane;
+      const float carry =
+          cell_bwd(in, in[5] + rec, dc_state[b], dgates + b * G + u, H);
+      dc_state[b] = carry;
+      if (dc_out) dc_out[(size_t)b * H + u] = carry;
+    }
+  }
+}
+
+// Rows [r0, r0 + n) of a row-major matrix of K columns (K a multiple of 4)
+// into shared memory by the whole block, rows from `limit` on as zeros.
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int K,
+                                          int r0, int n, int limit) {
+  const int per_row = K / 4;
+  for (int i = threadIdx.x; i < n * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = i - r * per_row;
+    reinterpret_cast<float4*>(dst)[i] =
+        r0 + r < limit ? reinterpret_cast<const float4*>(
+                             src + (size_t)(r0 + r) * K)[c]
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// The cell carries (units x B) and the staging buffer (n floats) zeroed:
+// the padding rows of a pass must hold finite values.
+__device__ __forceinline__ void zero_shared(float* c_s, int n_c, float* x_s,
+                                            size_t n) {
+  for (int i = threadIdx.x; i < n_c; i += blockDim.x) c_s[i] = 0.0f;
+  for (size_t i = threadIdx.x; i < n; i += blockDim.x) x_s[i] = 0.0f;
+}
+
+// ---------------------------------------------------------------- B2
+// Steps t = T-1 .. 0, then dh0.  Warp j of block blk owns unit u = blk *
+// units + j; its dot is against row u of W_hh.  Dynamic shared memory: w_s
+// (units x 4H: the block's W_hh rows), x_s (chunk rounded up to a multiple
+// of R, x 4H: staged dgates_{t+1} rows), p_s (units x kIn x R: the next
+// step's inputs of the first pass, prefetched), c_s (units x B: carries).
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+lstm_bwd_persistent(int T, int B, int H, int units, int chunk,
+                    const float* __restrict__ acts,
+                    const float* __restrict__ cs_prev,
+                    const float* __restrict__ ghs,
+                    const float* __restrict__ w_hh, float* dgates,
+                    float* __restrict__ dh0, float* __restrict__ dc0) {
+  extern __shared__ float4 smem4[];
+  const int G = 4 * H;
+  const int x_rows = round_up(chunk, R);
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* x_s = w_s + (size_t)units * G;
+  float* p_s = x_s + (size_t)x_rows * G;
+  float* c_s = p_s + (size_t)units * kIn * R;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int u = blockIdx.x * units + warp;
+  const size_t BH = (size_t)B * H, BG = (size_t)B * G;
+  load_rows(w_s, w_hh, G, blockIdx.x * units, units, H);
+  zero_shared(c_s, units * B, x_s, (size_t)x_rows * G);
+  float* pre = p_s + warp * kIn * R;
+  const int pre_rows = min(R, min(chunk, B));
+  if (u < H)
+    prefetch_inputs(pre, acts + (T - 1) * BG, cs_prev + (T - 1) * BH,
+                    ghs + (T - 1) * BH, H, u, pre_rows, lane);
+  cg::grid_group grid = cg::this_grid();
+  for (int t = T - 1; t >= 0; --t) {
+    const bool rec = t + 1 < T;          // a cotangent from step t + 1
+    for (int b0 = 0; b0 < B; b0 += chunk) {
+      const int n = min(chunk, B - b0);
+      __syncthreads();                   // x_s free, w_s and c_s written
+      if (rec) stage_rows(x_s, G, dgates + (t + 1) * BG + b0 * G, G, n, G);
+      cp_async_wait_all();
+      __syncthreads();
+      if (u < H)
+        bwd_rows<R, false>(u, lane, H, n, w_s + (size_t)warp * G, G, nullptr,
+                           rec ? G : 0, nullptr, 0, x_s, G,
+                           acts + t * BG + b0 * G,
+                           cs_prev + t * BH + b0 * H, ghs + t * BH + b0 * H,
+                           b0 == 0 ? pre : nullptr, c_s + warp * B + b0,
+                           t == 0 ? dc0 + b0 * H : nullptr,
+                           dgates + t * BG + b0 * G);
+    }
+    if (t > 0 && u < H)
+      prefetch_inputs(pre, acts + (t - 1) * BG, cs_prev + (t - 1) * BH,
+                      ghs + (t - 1) * BH, H, u, pre_rows, lane);
+    grid.sync();                         // after step 0: dgates_0 complete
+  }
+  // dh0 = dgates_0 . W_hh^T
+  for (int b0 = 0; b0 < B; b0 += chunk) {
+    const int n = min(chunk, B - b0);
+    __syncthreads();
+    stage_rows(x_s, G, dgates + b0 * G, G, n, G);
+    cp_async_wait_all();
+    __syncthreads();
+    if (u >= H) continue;
+    for (int p0 = 0; p0 < n; p0 += R) {
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+      row_dots<R, false>(acc, lane, w_s + (size_t)warp * G, G, nullptr, G,
+                         nullptr, 0, x_s + (size_t)p0 * G, G);
+      warp_sums<R>(acc, lane);
+      const float v = lane_value<R>(acc, lane);
+      if (lane < min(R, n - p0)) dh0[(size_t)(b0 + p0 + lane) * H + u] = v;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- B4
+// Wavefront step s = 0..T: blocks [0, nb) run layer 2 at t = T-1-s, blocks
+// [nb, 2nb) layer 1 at t = T-s, whose layer-2 cotangent dgates2_t the other
+// half wrote before the last barrier.  w2 = [w_ih2; w_hh2] (2H x 4H): its
+// row u gives the cotangent that flows into h1, its row H + u layer 2's own
+// recurrent one.  Layer 2's weight row is w2[H+u, :] (4H), layer 1's
+// [w2[u, :] | w1[u, :]] (8H); both stream from L2 through the warp's ring.
+// Dynamic shared memory: the rings (units x stages x kWide), x_s (chunk
+// rounded up to a multiple of R, x 8H: [dgates2_t | dgates1_{t+1}] for
+// layer 1, dgates2_{t+1} in the first 4H for layer 2), p_s (units x kIn x
+// R: the next step's inputs of the first pass), c_s (units x B: carries).
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+lstm_stack2_bwd_persistent(int T, int B, int H, int units, int chunk,
+                           int stages, const float* __restrict__ acts1,
+                           const float* __restrict__ acts2,
+                           const float* __restrict__ cs1_prev,
+                           const float* __restrict__ cs2_prev,
+                           const float* __restrict__ ghs2,
+                           const float* __restrict__ w1,
+                           const float* __restrict__ w2, float* dgates1,
+                           float* dgates2) {
+  extern __shared__ float4 smem4[];
+  const int nb = gridDim.x / 2;
+  const bool layer1 = blockIdx.x >= nb;
+  const int G = 4 * H, x_ld = 2 * G;
+  const int x_rows = round_up(chunk, R);
+  float* rings = reinterpret_cast<float*>(smem4);
+  float* x_s = rings + (size_t)units * stages * kWide;
+  float* p_s = x_s + (size_t)x_rows * x_ld;
+  float* c_s = p_s + (size_t)units * kIn * R;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int u = (layer1 ? blockIdx.x - nb : blockIdx.x) * units + warp;
+  float* ring = rings + (size_t)warp * stages * kWide;
+  const size_t BH = (size_t)B * H, BG = (size_t)B * G;
+  zero_shared(c_s, units * B, x_s, (size_t)x_rows * x_ld);
+  const float* row_a = w2 + (size_t)(layer1 ? u : H + u) * G;
+  const float* row_b = w1 + (size_t)u * G;
+  const float* acts = layer1 ? acts1 : acts2;
+  const float* c_prev = layer1 ? cs1_prev : cs2_prev;
+  const float* ghs = layer1 ? nullptr : ghs2;
+  float* dgates = layer1 ? dgates1 : dgates2;
+  float* pre = p_s + warp * kIn * R;
+  const int pre_rows = min(R, min(chunk, B));
+  if (!layer1 && u < H)
+    prefetch_inputs(pre, acts + (T - 1) * BG, c_prev + (T - 1) * BH,
+                    ghs + (T - 1) * BH, H, u, pre_rows, lane);
+  cg::grid_group grid = cg::this_grid();
+  for (int s = 0; s <= T; ++s) {
+    const int t = layer1 ? T - s : T - 1 - s;
+    const bool rec = t + 1 < T;          // a cotangent from step t + 1
+    if (t >= 0 && t < T) {
+      for (int b0 = 0; b0 < B; b0 += chunk) {
+        const int n = min(chunk, B - b0);
+        __syncthreads();                 // x_s free, c_s written
+        if (layer1) {
+          stage_rows(x_s, x_ld, dgates2 + t * BG + b0 * G, G, n, G);
+          if (rec)
+            stage_rows(x_s + G, x_ld, dgates1 + (t + 1) * BG + b0 * G, G, n,
+                       G);
+        } else if (rec) {
+          stage_rows(x_s, x_ld, dgates2 + (t + 1) * BG + b0 * G, G, n, G);
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        if (u < H)
+          bwd_rows<R, true>(u, lane, H, n, row_a, G, row_b,
+                            (layer1 ? G : 0) + (rec ? G : 0), ring, stages,
+                            x_s, x_ld, acts + t * BG + b0 * G,
+                            c_prev + t * BH + b0 * H,
+                            ghs ? ghs + t * BH + b0 * H : nullptr,
+                            b0 == 0 ? pre : nullptr, c_s + warp * B + b0,
+                            nullptr, dgates + t * BG + b0 * G);
+      }
+    }
+    if (s < T) {
+      const int tn = t - 1;              // this half's step at s + 1
+      if (u < H && tn >= 0 && tn < T)
+        prefetch_inputs(pre, acts + tn * BG, c_prev + tn * BH,
+                        ghs ? ghs + tn * BH : nullptr, H, u, pre_rows, lane);
+      grid.sync();
+    }
+  }
+}
+
 // A cooperative launch of `kernel` on `blocks` blocks of units warps, or
 // the reason it cannot run: every block must be co-resident.
 template <typename Kernel>
 int launch_cooperative(Kernel kernel, int blocks, int units, int smem,
-                       void** args, cudaStream_t st) {
+                       void** args, void* stream) {
   const int threads = units * kWarp;
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -582,230 +929,84 @@ int launch_cooperative(Kernel kernel, int blocks, int units, int smem,
   if ((long long)per_sm * n_sm < blocks)
     return cudaErrorCooperativeLaunchTooLarge;
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                    dim3(threads), args, smem, st);
+                                    dim3(threads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // The plan's own consistency: units per block and rows per pass the kernels
-// are built for, and every unit of a layer owned by one of its nb blocks.
-bool plan_ok(int T, int B, int H, int nb, int units, int rows, int chunk) {
+// are built for, and every unit of a layer owned by one of its nb blocks;
+// `stages` 0 for a kernel without a weight ring (B1, B2), else in range.
+bool plan_ok(int T, int B, int H, int nb, int units, int rows, int chunk,
+             int stages, bool ring) {
   const bool rows_ok =
       rows == 1 || rows == 4 || rows == 8 || rows == 16 || rows == 24;
+  const bool stages_ok =
+      ring ? stages >= kMinStages && stages <= kMaxStages : stages == 0;
   return T >= 1 && B >= 1 && H >= 1 && units >= 1 && units <= kMaxUnits &&
-         rows_ok && chunk >= 1 && (long long)nb * units >= H &&
+         rows_ok && stages_ok && chunk >= 1 && (long long)nb * units >= H &&
          (long long)(nb - 1) * units < H;
 }
 
-template <int R>
-int fwd_launch(const float* gx, const float* w_hh, const float* h0,
-               const float* c0, float* hs, float* cs, int T, int B, int H,
-               int blocks, int units, int chunk, int smem, cudaStream_t st) {
-  void* args[] = {&T, &B, &H, &units, &chunk, &gx, &w_hh, &h0, &c0, &hs,
-                  &cs};
-  return launch_cooperative(lstm_fwd_persistent<R>, blocks, units, smem,
-                            args, st);
-}
-
-template <int R>
-int stack2_launch(const float* gates1, const float* w1, const float* w2,
-                  const float* b2, const float* h01, const float* c01,
-                  const float* h02, const float* c02, float* w1T, float* w2T,
-                  float* hs1, float* cs1, float* hs2, float* cs2, int T,
-                  int B, int H, int blocks, int units, int chunk, int stages,
-                  int smem, cudaStream_t st) {
-  void* args[] = {&T,   &B,   &H,   &units, &chunk, &stages, &gates1,
-                  &w1,  &w2,  &b2,  &h01,   &c01,   &h02,    &c02,
-                  &w1T, &w2T, &hs1, &cs1,   &hs2,   &cs2};
-  return launch_cooperative(lstm_stack2_fwd_persistent<R>, blocks, units,
-                            smem, args, st);
-}
-
-// ---------------------------------------------------------------- B2
-// The gate-gradient step shared by both backward kernels, for one unit and
-// one batch row b: reads the activated gates acts[b, :], the previous cell
-// state, the incoming hidden cotangent dh and the cell carry; writes
-// dgates[b, :] and the carry for the step before.
-__device__ __forceinline__ void cell_bwd(int unit, int b, int H,
-                                         const float* __restrict__ acts,
-                                         const float* __restrict__ c_prev,
-                                         float dh, float* dc_carry,
-                                         bool first, float* dgates) {
-  const size_t G = (size_t)4 * H;
-  const float* a = acts + b * G;
-  const float gi = a[unit];
-  const float gf = a[H + unit];
-  const float gg = a[2 * H + unit];
-  const float go = a[3 * H + unit];
-  const size_t i = (size_t)b * H + unit;
-  const float cp = c_prev[i];
-  const float tc = tanhf(gf * cp + gi * gg);
-  const float d_o = dh * tc;
-  const float dc = (first ? 0.0f : dc_carry[i]) + dh * go * (1.0f - tc * tc);
-  float* d = dgates + b * G;
-  d[unit] = dc * gg * gi * (1.0f - gi);
-  d[H + unit] = dc * cp * gf * (1.0f - gf);
-  d[2 * H + unit] = dc * gi * (1.0f - gg * gg);
-  d[3 * H + unit] = d_o * go * (1.0f - go);
-  dc_carry[i] = dc * gf;
-}
-
-// dg_next == nullptr marks the last time step (no recurrent cotangent yet).
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_step(int B, int H, const float* acts, const float* c_prev,
-              const float* ghs, const float* w, const float* dg_next,
-              float* dc_carry, float* dgates) {
-  const int lane = threadIdx.x % kWarp;
-  const int unit = blockIdx.x * kUnits + threadIdx.x / kWarp;
-  if (unit >= H) return;
-  const int G = 4 * H;
-  for (int b0 = 0; b0 < B; b0 += kRows) {
-    const int nr = min(kRows, B - b0);
-    float rec[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) rec[r] = 0.0f;
-    if (dg_next)
-      warp_dot(w + (size_t)unit * G, dg_next + (size_t)b0 * G, G, G, nullptr,
-               0, 0, nr, lane, rec);
-    if (lane < nr) {
-      const int b = b0 + lane;
-      const float dh = ghs[(size_t)b * H + unit] + pick(rec, lane);
-      cell_bwd(unit, b, H, acts, c_prev, dh, dc_carry, dg_next == nullptr,
-               dgates);
-    }
+// f(std::integral_constant<int, R>()) for the rows per pass R of the plan
+// (one of those plan_ok accepts).
+template <typename F>
+int by_rows(int rows, F f) {
+  switch (rows) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 8: return f(std::integral_constant<int, 8>());
+    case 16: return f(std::integral_constant<int, 16>());
+    default: return f(std::integral_constant<int, 24>());
   }
 }
-
-// out[b, unit] = w[unit, :] . dg[b, :]  (the cotangent of h0)
-__global__ void __launch_bounds__(kThreads)
-recurrent_product(int B, int H, const float* w, const float* dg, float* out) {
-  const int lane = threadIdx.x % kWarp;
-  const int unit = blockIdx.x * kUnits + threadIdx.x / kWarp;
-  if (unit >= H) return;
-  const int G = 4 * H;
-  for (int b0 = 0; b0 < B; b0 += kRows) {
-    const int nr = min(kRows, B - b0);
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-    warp_dot(w + (size_t)unit * G, dg + (size_t)b0 * G, G, G, nullptr, 0, 0,
-             nr, lane, acc);
-    if (lane < nr) out[(size_t)(b0 + lane) * H + unit] = pick(acc, lane);
-  }
-}
-
-// ---------------------------------------------------------------- B4
-// Launch s: blocks [0, nb) run layer 2 at step T-1-s, blocks [nb, 2nb) run
-// layer 1 at step T-s, whose layer-2 cotangent dgates2_{T-s} the previous
-// launch wrote.  w2 = [w_ih2; w_hh2] (2H x 4H): its row u gives the
-// cotangent flowing into h1, its row H+u layer 2's own recurrent carry.
-__global__ void __launch_bounds__(kThreads)
-stack2_bwd_step(int s, int T, int B, int H, const float* acts1,
-                const float* acts2, const float* cs1_prev,
-                const float* cs2_prev, const float* ghs2, const float* w1,
-                const float* w2, float* dc1, float* dc2, float* dgates1,
-                float* dgates2) {
-  const int nb = gridDim.x / 2;
-  const bool layer1 = blockIdx.x >= nb;
-  const int blk = layer1 ? blockIdx.x - nb : blockIdx.x;
-  const int lane = threadIdx.x % kWarp;
-  const int unit = blk * kUnits + threadIdx.x / kWarp;
-  const int t = layer1 ? T - s : T - 1 - s;
-  if (unit >= H || t < 0 || t >= T) return;
-  const int G = 4 * H;
-  const size_t TG = (size_t)B * G;       // one time step of gates
-  const size_t BH = (size_t)B * H;
-  const bool first = t == T - 1;
-  for (int b0 = 0; b0 < B; b0 += kRows) {
-    const int nr = min(kRows, B - b0);
-    float dh[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) dh[r] = 0.0f;
-    if (!layer1) {
-      if (!first)
-        warp_dot(w2 + ((size_t)H + unit) * G, dgates2 + (t + 1) * TG + b0 * G,
-                 G, G, nullptr, 0, 0, nr, lane, dh);
-      if (lane < nr) {
-        const int b = b0 + lane;
-        const float d = ghs2[t * BH + (size_t)b * H + unit] + pick(dh, lane);
-        cell_bwd(unit, b, H, acts2 + t * TG, cs2_prev + t * BH, d, dc2, first,
-                 dgates2 + t * TG);
-      }
-    } else {
-      float rec[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) rec[r] = 0.0f;
-      warp_dot(w2 + (size_t)unit * G, dgates2 + t * TG + b0 * G, G, G,
-               nullptr, 0, 0, nr, lane, dh);
-      if (!first)
-        warp_dot(w1 + (size_t)unit * G, dgates1 + (t + 1) * TG + b0 * G, G,
-                 G, nullptr, 0, 0, nr, lane, rec);
-      if (lane < nr) {
-        const int b = b0 + lane;
-        const float d = pick(dh, lane) + pick(rec, lane);
-        cell_bwd(unit, b, H, acts1 + t * TG, cs1_prev + t * BH, d, dc1, first,
-                 dgates1 + t * TG);
-      }
-    }
-  }
-}
-
-inline int n_blocks(int H) { return (H + kUnits - 1) / kUnits; }
 
 }  // namespace
 
+// Every entry point takes its launch plan from ops/lstm_kernels.py
+// (fwd_plan, stack2_plan, bwd_plan, stack2_bwd_plan): one cooperative
+// launch of `blocks` blocks of `units` hidden units (B3, B4: half the blocks
+// per layer), `rows` batch rows per pass, `chunk` rows staged at a time,
+// `stages` tiles in each warp's weight ring (B3, B4; 0 for B1, B2) and `smem`
+// dynamic shared bytes.
 extern "C" {
 
-// hs, cs (T, B, H) <- gx (T, B, 4H), w_hh (H, 4H), h0, c0 (B, H); one
-// cooperative launch of `blocks` blocks of `units` hidden units, `rows`
-// batch rows per pass, `chunk` rows staged at a time, `smem` dynamic shared
-// bytes (ops/lstm_kernels.py: fwd_plan); `stages` must be 0 (B1 has no
-// weight ring).
+// hs, cs (T, B, H) <- gx (T, B, 4H), w_hh (H, 4H), h0, c0 (B, H).
 int paule_lstm_fwd(const float* gx, const float* w_hh, const float* h0,
                    const float* c0, float* hs, float* cs, int T, int B, int H,
                    int blocks, int units, int rows, int chunk, int stages,
                    int smem, void* stream) {
-  if (stages != 0 || !plan_ok(T, B, H, blocks, units, rows, chunk))
+  if (!plan_ok(T, B, H, blocks, units, rows, chunk, stages, false))
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 1: return fwd_launch<1>(gx, w_hh, h0, c0, hs, cs, T, B, H, blocks,
-                                 units, chunk, smem, st);
-    case 4: return fwd_launch<4>(gx, w_hh, h0, c0, hs, cs, T, B, H, blocks,
-                                 units, chunk, smem, st);
-    case 8: return fwd_launch<8>(gx, w_hh, h0, c0, hs, cs, T, B, H, blocks,
-                                 units, chunk, smem, st);
-    case 16: return fwd_launch<16>(gx, w_hh, h0, c0, hs, cs, T, B, H,
-                                   blocks, units, chunk, smem, st);
-    default: return fwd_launch<24>(gx, w_hh, h0, c0, hs, cs, T, B, H,
-                                   blocks, units, chunk, smem, st);
-  }
+  return by_rows(rows, [&](auto r) {
+    void* args[] = {&T, &B, &H, &units, &chunk, &gx, &w_hh, &h0, &c0, &hs,
+                    &cs};
+    return launch_cooperative(lstm_fwd_persistent<decltype(r)::value>,
+                              blocks, units, smem, args, stream);
+  });
 }
 
 // dgates (T, B, 4H), dh0, dc0 (B, H) <- acts (T, B, 4H), cs_prev, ghs
-// (T, B, H), w = W_hh (H, 4H).  dc0 doubles as the cell-state carry.
+// (T, B, H), w = W_hh (H, 4H).
 int paule_lstm_bwd(const float* acts, const float* cs_prev, const float* ghs,
                    const float* w, float* dgates, float* dh0, float* dc0,
-                   int T, int B, int H, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t BH = (size_t)B * H, BG = (size_t)B * 4 * H;
-  for (int t = T - 1; t >= 0; --t) {
-    lstm_bwd_step<<<n_blocks(H), kThreads, 0, st>>>(
-        B, H, acts + t * BG, cs_prev + t * BH, ghs + t * BH, w,
-        t == T - 1 ? nullptr : dgates + (t + 1) * BG, dc0, dgates + t * BG);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  recurrent_product<<<n_blocks(H), kThreads, 0, st>>>(B, H, w, dgates, dh0);
-  return cudaGetLastError();
+                   int T, int B, int H, int blocks, int units, int rows,
+                   int chunk, int stages, int smem, void* stream) {
+  if (!plan_ok(T, B, H, blocks, units, rows, chunk, stages, false))
+    return cudaErrorInvalidValue;
+  return by_rows(rows, [&](auto r) {
+    void* args[] = {&T,    &B, &H,      &units, &chunk, &acts, &cs_prev,
+                    &ghs,  &w, &dgates, &dh0,   &dc0};
+    return launch_cooperative(lstm_bwd_persistent<decltype(r)::value>,
+                              blocks, units, smem, args, stream);
+  });
 }
 
 // hs1, cs1, hs2, cs2 (T, B, H) <- gates1 (T, B, 4H), w1 = W_hh1 (H, 4H),
 // w2 = [w_ih2; w_hh2] (2H, 4H), b2 (4H), initial carries (B, H); w1T
 // (4H, Hp) and w2T (4H, 2Hp) are scratch (Hp: H rounded up to a multiple of
-// 4).  One cooperative launch of `blocks` blocks (half per layer), as
-// paule_lstm_fwd, with a weight ring of `stages` tiles per warp
-// (ops/lstm_kernels.py: stack2_plan).
+// 4).
 int paule_lstm_stack2_fwd(const float* gates1, const float* w1,
                           const float* w2, const float* b2, const float* h01,
                           const float* c01, const float* h02,
@@ -814,48 +1015,37 @@ int paule_lstm_stack2_fwd(const float* gates1, const float* w1,
                           int T, int B, int H, int blocks, int units,
                           int rows, int chunk, int stages, int smem,
                           void* stream) {
-  if (blocks % 2 || stages < kMinStages || stages > kMaxStages ||
-      !plan_ok(T, B, H, blocks / 2, units, rows, chunk))
+  if (blocks % 2 ||
+      !plan_ok(T, B, H, blocks / 2, units, rows, chunk, stages, true))
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 1: return stack2_launch<1>(gates1, w1, w2, b2, h01, c01, h02, c02,
-                                    w1T, w2T, hs1, cs1, hs2, cs2, T, B, H,
-                                    blocks, units, chunk, stages, smem, st);
-    case 4: return stack2_launch<4>(gates1, w1, w2, b2, h01, c01, h02, c02,
-                                    w1T, w2T, hs1, cs1, hs2, cs2, T, B, H,
-                                    blocks, units, chunk, stages, smem, st);
-    case 8: return stack2_launch<8>(gates1, w1, w2, b2, h01, c01, h02, c02,
-                                    w1T, w2T, hs1, cs1, hs2, cs2, T, B, H,
-                                    blocks, units, chunk, stages, smem, st);
-    case 16: return stack2_launch<16>(gates1, w1, w2, b2, h01, c01, h02,
-                                      c02, w1T, w2T, hs1, cs1, hs2, cs2, T,
-                                      B, H, blocks, units, chunk, stages,
-                                      smem, st);
-    default: return stack2_launch<24>(gates1, w1, w2, b2, h01, c01, h02,
-                                      c02, w1T, w2T, hs1, cs1, hs2, cs2, T,
-                                      B, H, blocks, units, chunk, stages,
-                                      smem, st);
-  }
+  return by_rows(rows, [&](auto r) {
+    void* args[] = {&T,   &B,   &H,   &units, &chunk, &stages, &gates1,
+                    &w1,  &w2,  &b2,  &h01,   &c01,   &h02,    &c02,
+                    &w1T, &w2T, &hs1, &cs1,   &hs2,   &cs2};
+    return launch_cooperative(lstm_stack2_fwd_persistent<decltype(r)::value>,
+                              blocks, units, smem, args, stream);
+  });
 }
 
 // dgates1, dgates2 (T, B, 4H) <- acts1, acts2 (T, B, 4H), cs1_prev,
-// cs2_prev, ghs2 (T, B, H), w1 = W_hh1 (H, 4H), w2 (2H, 4H);
-// dc1, dc2 (B, H) are the cell-state carries
+// cs2_prev, ghs2 (T, B, H), w1 = W_hh1 (H, 4H), w2 (2H, 4H).
 int paule_lstm_stack2_bwd(const float* acts1, const float* acts2,
                           const float* cs1_prev, const float* cs2_prev,
                           const float* ghs2, const float* w1, const float* w2,
-                          float* dc1, float* dc2, float* dgates1,
-                          float* dgates2, int T, int B, int H, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int s = 0; s <= T; ++s) {
-    stack2_bwd_step<<<2 * n_blocks(H), kThreads, 0, st>>>(
-        s, T, B, H, acts1, acts2, cs1_prev, cs2_prev, ghs2, w1, w2, dc1, dc2,
-        dgates1, dgates2);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaGetLastError();
+                          float* dgates1, float* dgates2, int T, int B, int H,
+                          int blocks, int units, int rows, int chunk,
+                          int stages, int smem, void* stream) {
+  if (blocks % 2 ||
+      !plan_ok(T, B, H, blocks / 2, units, rows, chunk, stages, true))
+    return cudaErrorInvalidValue;
+  return by_rows(rows, [&](auto r) {
+    void* args[] = {&T,       &B,        &H,    &units, &chunk,
+                    &stages,  &acts1,    &acts2, &cs1_prev, &cs2_prev,
+                    &ghs2,    &w1,       &w2,   &dgates1, &dgates2};
+    return launch_cooperative(
+        lstm_stack2_bwd_persistent<decltype(r)::value>, blocks, units, smem,
+        args, stream);
+  });
 }
 
 }  // extern "C"

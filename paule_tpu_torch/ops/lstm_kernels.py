@@ -16,11 +16,12 @@ through the kernel.  The kernel library is built with ``nvcc`` on first use
 into ``paule_tpu_torch/_build/`` and rebuilt when the source changes
 (:mod:`.cuda_build`).
 
-B1 and B3 are persistent kernels: one cooperative launch per call, whose
-blocks must all be co-resident on the card.  Their launch plan
-(:func:`fwd_plan`, :func:`stack2_plan`) is computed here from the card's SM
-count and opt-in shared memory per block; a grid that cannot be co-resident
-raises (CUDA error ``cudaErrorCooperativeLaunchTooLarge``, 720).
+All four are persistent kernels: one cooperative launch per call, whose
+blocks must all be co-resident on the card.  Their launch plans
+(:func:`fwd_plan`, :func:`bwd_plan`, :func:`stack2_plan`,
+:func:`stack2_bwd_plan`) are computed here from the card's SM count and
+opt-in shared memory per block; a grid that cannot be co-resident raises
+(CUDA error ``cudaErrorCooperativeLaunchTooLarge``, 720).
 
 What bounds the kernels and what their design does about it is written at
 the top of ``csrc/lstm.cu``.
@@ -34,8 +35,8 @@ import torch
 from .cuda_build import CudaLibrary, check_tensor as _check
 
 LIBRARY = CudaLibrary("lstm.cu", {
-    "paule_lstm_fwd": (6, 9), "paule_lstm_bwd": (7, 3),
-    "paule_lstm_stack2_fwd": (14, 9), "paule_lstm_stack2_bwd": (11, 3)})
+    "paule_lstm_fwd": (6, 9), "paule_lstm_bwd": (7, 9),
+    "paule_lstm_stack2_fwd": (14, 9), "paule_lstm_stack2_bwd": (9, 9)})
 build = LIBRARY.build
 _launch = LIBRARY.launch
 
@@ -45,15 +46,19 @@ F32 = 4
 ROWS_PER_PASS = (1, 4, 8, 16, 24)
 #: most hidden units (one warp each) a block of the persistent kernels owns
 MAX_UNITS = 12
-#: B3 streams each warp's weight rows through a ring of tiles in shared
-#: memory: 4 gate rows x 128 columns of float32 a tile, 2 to 8 tiles
+#: B3 and B4 stream each warp's weight rows through a ring of 2 to 8 tiles
+#: in shared memory: 512 float32 a tile (B3: 128 columns of its 4 gate
+#: rows; B4: 512 columns of its one row)
 TILE_BYTES = F32 * 4 * 128
 MIN_STAGES, MAX_STAGES = 2, 8
+#: floats per batch row of a backward step's prefetched inputs: the acts of
+#: the four gates, the previous cell state, the hidden cotangent
+IN_FLOATS = 6
 
-#: one cooperative launch: ``blocks`` blocks of ``units`` hidden units (B3:
-#: half the blocks per layer), ``rows`` batch rows per pass, ``chunk`` rows
-#: staged in shared memory at a time, ``stages`` tiles in each warp's weight
-#: ring (B3; 0 for B1), ``smem`` dynamic shared bytes a block
+#: one cooperative launch: ``blocks`` blocks of ``units`` hidden units (B3,
+#: B4: half the blocks per layer), ``rows`` batch rows per pass, ``chunk``
+#: rows staged in shared memory at a time, ``stages`` tiles in each warp's
+#: weight ring (B3, B4; 0 for B1, B2), ``smem`` dynamic shared bytes a block
 LaunchPlan = collections.namedtuple("LaunchPlan",
                                     "blocks units rows chunk stages smem")
 
@@ -94,52 +99,85 @@ def _check_units(what, hidden, units):
                          f"more than the kernel's {MAX_UNITS}")
 
 
+def _one_layer_plan(what, hidden, batch, n_sm, smem_limit, unit_floats,
+                    in_floats, row_floats):
+    """A one-layer kernel's plan: as few units per block as keep one block
+    per SM.  A block holds in shared memory ``unit_floats`` per unit (its
+    resident weights) and its units' carries (``units x B``), the next
+    step's inputs of one pass (``units x in_floats x rows``) and a chunk of
+    staged rows (``row_floats`` each); raises if not even one row fits."""
+    units = _ceil_div(hidden, n_sm)
+    _check_units(what, hidden, units)
+    fixed = F32 * units * (unit_floats + batch)
+    inputs = F32 * units * in_floats             # bytes per row of a pass
+    chunk, rows = _chunk_and_rows(
+        what, hidden, batch, smem_limit - fixed - inputs * ROWS_PER_PASS[-1],
+        F32 * row_floats)
+    return LaunchPlan(_ceil_div(hidden, units), units, rows, chunk, 0,
+                      fixed + inputs * rows
+                      + _round_up(chunk, rows) * F32 * row_floats)
+
+
 def fwd_plan(hidden, batch, n_sm, smem_limit):
     """B1's launch plan on a card of ``n_sm`` SMs and ``smem_limit`` opt-in
-    shared bytes per block: as few units per block as keep one block per SM.
-    A block holds in shared memory its units' W_hh columns (``units x 4 x
-    Hp`` floats, ``Hp`` = H rounded up to a multiple of 4), their cell
-    states (``units x B``), the next step's input gates of one pass (``units
-    x 4 x rows``) and a chunk of staged ``h`` rows (``Hp`` floats each);
-    raises if not even one row fits."""
-    units = _ceil_div(hidden, n_sm)
-    _check_units("B1", hidden, units)
+    shared bytes per block.  A block holds its units' W_hh columns (``4 x
+    Hp`` floats a unit, ``Hp`` = H rounded up to a multiple of 4), their
+    cell states, the next step's input gates (4 floats a row) and staged
+    ``h`` rows (``Hp`` floats each)."""
     hp = _pad4(hidden)
-    fixed = F32 * units * (4 * hp + batch)
-    gates = F32 * units * 4                      # bytes per row of a pass
-    chunk, rows = _chunk_and_rows(
-        "B1", hidden, batch, smem_limit - fixed - gates * ROWS_PER_PASS[-1],
-        F32 * hp)
-    return LaunchPlan(_ceil_div(hidden, units), units, rows, chunk, 0,
-                      fixed + gates * rows
-                      + _round_up(chunk, rows) * F32 * hp)
+    return _one_layer_plan("B1", hidden, batch, n_sm, smem_limit, 4 * hp, 4,
+                           hp)
 
 
-def stack2_plan(hidden, batch, n_sm, smem_limit):
-    """B3's launch plan: both layers' blocks, the same units per block, one
-    block per SM.  The weights stay in global memory (L2); a block holds in
-    shared memory each warp's weight ring, its units' cell states, layer 1's
-    next input gates of one pass and a chunk of staged ``[h1; h2]`` rows
-    (``2 Hp`` floats each): as many rows as fit beside the shortest ring,
-    then as deep a ring as fits."""
+def bwd_plan(hidden, batch, n_sm, smem_limit):
+    """B2's launch plan.  A block holds its units' W_hh rows (``4H`` floats
+    a unit), their cell-gradient carries, the next step's inputs
+    (:data:`IN_FLOATS` a row) and staged ``dgates`` rows (``4H`` floats
+    each)."""
+    return _one_layer_plan("B2", hidden, batch, n_sm, smem_limit, 4 * hidden,
+                           IN_FLOATS, 4 * hidden)
+
+
+def _two_layer_plan(what, hidden, batch, n_sm, smem_limit, in_floats,
+                    row_floats):
+    """A two-layer wavefront's plan: both layers' blocks, the same units
+    per block, one block per SM.  The weights stay in global memory (L2); a
+    block holds in shared memory its units' carries, the next step's inputs
+    of one pass (``in_floats`` a row), each warp's weight ring and a chunk
+    of staged rows (``row_floats`` each): as many rows as fit beside the
+    shortest ring, then as deep a ring as fits."""
     if n_sm < 2:
-        raise ValueError("B3 needs at least 2 SMs, one per layer")
+        raise ValueError(f"{what} needs at least 2 SMs, one per layer")
     units = _ceil_div(2 * hidden, n_sm)
     while 2 * _ceil_div(hidden, units) > n_sm:
         units += 1
-    _check_units("B3", hidden, units)
+    _check_units(what, hidden, units)
     ring = units * TILE_BYTES
     fixed = F32 * units * batch
-    gates = F32 * units * 4
-    row_bytes = F32 * 2 * _pad4(hidden)
+    inputs = F32 * units * in_floats
+    row_bytes = F32 * row_floats
     chunk, rows = _chunk_and_rows(
-        "B3", hidden, batch,
-        smem_limit - fixed - gates * ROWS_PER_PASS[-1] - MIN_STAGES * ring,
+        what, hidden, batch,
+        smem_limit - fixed - inputs * ROWS_PER_PASS[-1] - MIN_STAGES * ring,
         row_bytes)
-    used = fixed + gates * rows + _round_up(chunk, rows) * row_bytes
+    used = fixed + inputs * rows + _round_up(chunk, rows) * row_bytes
     stages = min(MAX_STAGES, (smem_limit - used) // ring)
     return LaunchPlan(2 * _ceil_div(hidden, units), units, rows, chunk,
                       stages, used + stages * ring)
+
+
+def stack2_plan(hidden, batch, n_sm, smem_limit):
+    """B3's launch plan: layer 1's next input gates are 4 floats a row,
+    the staged rows ``[h1; h2]`` ``2 Hp`` floats."""
+    return _two_layer_plan("B3", hidden, batch, n_sm, smem_limit, 4,
+                           2 * _pad4(hidden))
+
+
+def stack2_bwd_plan(hidden, batch, n_sm, smem_limit):
+    """B4's launch plan: a step's inputs are :data:`IN_FLOATS` a row, the
+    staged rows ``[dgates2_t; dgates1_{t+1}]`` ``8H`` floats."""
+    return _two_layer_plan("B4", hidden, batch, n_sm, smem_limit, IN_FLOATS,
+                           8 * hidden)
 
 
 @functools.lru_cache(maxsize=None)
@@ -255,11 +293,12 @@ def lstm_bwd(acts, cs_prev, ghs, w_hh):
     _check("w_hh", w_hh, (hidden, 4 * hidden), dev)
     if seq < 1:
         raise ValueError("empty sequence")
+    plan = bwd_plan(hidden, batch, *device_limits(dev.index))
     dgates = torch.empty_like(acts)
     dh0 = torch.empty((batch, hidden), device=dev, dtype=torch.float32)
     dc0 = torch.empty_like(dh0)
     _launch("paule_lstm_bwd", dev, (acts, cs_prev, ghs, w_hh, dgates, dh0,
-                                    dc0), (seq, batch, hidden))
+                                    dc0), (seq, batch, hidden, *plan))
     lstm_bwd.launches += 1
     return dgates, dh0, dc0
 
@@ -364,13 +403,12 @@ def lstm_stack2_bwd(acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2):
     _check("w2", w2, (2 * hidden, 4 * hidden), dev)
     if seq < 1:
         raise ValueError("empty sequence")
-    dc1 = torch.empty((batch, hidden), device=dev, dtype=torch.float32)
-    dc2 = torch.empty_like(dc1)
+    plan = stack2_bwd_plan(hidden, batch, *device_limits(dev.index))
     dgates1 = torch.empty_like(acts1)
     dgates2 = torch.empty_like(acts2)
     _launch("paule_lstm_stack2_bwd", dev,
-            (acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2, dc1, dc2,
-             dgates1, dgates2), (seq, batch, hidden))
+            (acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2, dgates1,
+             dgates2), (seq, batch, hidden, *plan))
     lstm_stack2_bwd.launches += 1
     return dgates1, dgates2
 

@@ -1,11 +1,12 @@
-"""Launch plans of the persistent forward kernels B1 and B3
-(``paule_tpu_torch.ops.lstm_kernels.fwd_plan`` / ``stack2_plan``).
+"""Launch plans of the persistent LSTM kernels B1-B4
+(``paule_tpu_torch.ops.lstm_kernels``: ``fwd_plan``, ``stack2_plan``,
+``bwd_plan``, ``stack2_bwd_plan``).
 
 The kernels run only on the card; their plans are pure Python and are held
 here to what the kernels assume: every hidden unit owned by exactly one
-block (per layer for B3), a grid that fits one block per SM, and shared
-memory (B1: the W_hh slice, the cell states and a staged row chunk) under
-the card's per-block limit.
+block (per layer for B3/B4), a grid that fits one block per SM, and shared
+memory (B1/B2: the resident weight slice, the carries and a staged row
+chunk) under the card's per-block limit.
 """
 
 import pytest
@@ -49,6 +50,19 @@ def _check_common(plan, hidden, batch):
     assert 1 <= plan.chunk <= batch
     assert plan.rows in K.ROWS_PER_PASS
     assert plan.rows >= min(plan.chunk, K.ROWS_PER_PASS[-1])
+
+
+def _check_backward(plan, hidden, batch):
+    """As :func:`_check_common`, except that a chunk too large for the
+    widest pass that fits in shared memory runs as several passes of it."""
+    assert 1 <= plan.units <= K.MAX_UNITS
+    assert plan.blocks <= N_SM
+    assert plan.smem <= SMEM
+    assert 1 <= plan.chunk <= batch
+    assert plan.rows in K.ROWS_PER_PASS
+    widest = max(r for r in K.ROWS_PER_PASS if r <= plan.chunk)
+    assert plan.rows >= min(plan.chunk, K.ROWS_PER_PASS[-1]) or (
+        plan.rows == widest and plan.chunk % plan.rows == 0)
 
 
 @pytest.mark.parametrize("hidden,batch", SHAPES)
@@ -131,3 +145,85 @@ def test_plan_raises_when_the_grid_cannot_fit(plan_fn, hidden, batch, n_sm,
                                               match):
     with pytest.raises(ValueError, match=match):
         plan_fn(hidden, batch, n_sm, SMEM)
+
+
+@pytest.mark.parametrize("hidden,batch", SHAPES)
+def test_bwd_plan_covers_every_unit_and_fits(hidden, batch):
+    plan = K.bwd_plan(hidden, batch, N_SM, SMEM)
+    _check_backward(plan, hidden, batch)
+    owner = _owners(plan, plan.blocks, hidden)
+    assert sorted(owner) == list(range(hidden))
+    assert set(owner.values()) == set(range(plan.blocks)), "no idle block"
+    assert plan.stages == 0
+    w_rows = F32 * plan.units * 4 * hidden       # W_hh rows, resident
+    assert plan.smem == (w_rows
+                         + F32 * plan.units * (batch + K.IN_FLOATS * plan.rows)
+                         + F32 * _staged(plan) * 4 * hidden)
+
+
+@pytest.mark.parametrize("hidden,batch", SHAPES)
+def test_stack2_bwd_plan_covers_every_unit_of_both_layers(hidden, batch):
+    plan = K.stack2_bwd_plan(hidden, batch, N_SM, SMEM)
+    _check_backward(plan, hidden, batch)
+    assert plan.blocks % 2 == 0
+    for _layer in range(2):
+        owner = _owners(plan, plan.blocks // 2, hidden)
+        assert sorted(owner) == list(range(hidden))
+        assert set(owner.values()) == set(range(plan.blocks // 2))
+    assert K.MIN_STAGES <= plan.stages <= K.MAX_STAGES
+    assert plan.smem == (F32 * plan.units * (batch + K.IN_FLOATS * plan.rows)
+                         + F32 * _staged(plan) * 8 * hidden
+                         + plan.stages * plan.units * K.TILE_BYTES)
+
+
+def test_backward_plans_at_the_main_path_shapes():
+    """H=720 on 132 SMs: B2 runs 120 blocks of 6 units holding 69,120 bytes
+    of W_hh rows each and stages every row of a training batch (B=8) at
+    once; B4 runs 66 blocks per layer of 11 units, with the deepest ring at
+    B=1 and every row of B=4 in one pass."""
+    for batch in (1, 8):
+        b2 = K.bwd_plan(720, batch, N_SM, SMEM)
+        assert (b2.blocks, b2.units, b2.chunk, b2.rows) == (120, 6, batch,
+                                                            batch)
+    assert K.bwd_plan(720, 8, N_SM, SMEM).smem == (
+        69_120 + F32 * 6 * 8 + F32 * 6 * K.IN_FLOATS * 8 + 8 * 11_520)
+    b4 = K.stack2_bwd_plan(720, 1, N_SM, SMEM)
+    assert (b4.blocks, b4.units, b4.chunk, b4.rows) == (132, 11, 1, 1)
+    assert b4.stages == K.MAX_STAGES
+    b4 = K.stack2_bwd_plan(720, 4, N_SM, SMEM)
+    assert (b4.chunk, b4.rows) == (4, 4) and b4.stages >= K.MIN_STAGES
+
+
+@pytest.mark.parametrize("plan_fn,row_floats", [
+    (K.bwd_plan, 4 * 720), (K.stack2_bwd_plan, 8 * 720)])
+def test_backward_large_batches_are_staged_in_chunks(plan_fn, row_floats):
+    """A batch larger than shared memory holds is staged in chunks of whole
+    passes, as many rows as fit."""
+    plan = plan_fn(720, 1000, N_SM, SMEM)
+    assert plan.chunk < 1000 and plan.chunk % plan.rows == 0
+    assert plan.smem <= SMEM < plan.smem + F32 * plan.rows * row_floats
+
+
+def test_odd_sm_counts_keep_the_backward_grids_co_resident():
+    for n_sm in (121, 125, 127, 131):
+        b2 = K.bwd_plan(720, 8, n_sm, SMEM)
+        assert b2.blocks <= n_sm and b2.blocks * b2.units >= 720
+        b4 = K.stack2_bwd_plan(720, 1, n_sm, SMEM)
+        assert b4.blocks <= n_sm and b4.blocks // 2 * b4.units >= 720
+        assert b4.smem <= SMEM
+
+
+@pytest.mark.parametrize("plan_fn,hidden,n_sm,smem,match", [
+    # B2's W_hh rows alone exceed a block's shared memory
+    (K.bwd_plan, 1500, N_SM, SMEM, "no room"),
+    # B4's shortest rings leave no room for one staged 8H row
+    (K.stack2_bwd_plan, 720, N_SM, 60_000, "no room"),
+    # too few SMs: more units per block than the kernel has warps
+    (K.bwd_plan, 720, 8, SMEM, "units per block"),
+    (K.stack2_bwd_plan, 720, 16, SMEM, "units per block"),
+    (K.stack2_bwd_plan, 8, 1, SMEM, "2 SMs"),
+])
+def test_backward_plan_raises_when_the_grid_cannot_fit(plan_fn, hidden, n_sm,
+                                                       smem, match):
+    with pytest.raises(ValueError, match=match):
+        plan_fn(hidden, 1, n_sm, smem)
