@@ -24,9 +24,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the losses and that every kernel of each path launched during its run,
    and traces one more warm call with ``torch.profiler`` (not timed) for
    the share of each phase's wall time in which the card was busy;
-5. holds short plans on the card (float32) against the CPU (float64),
-   without and with continue-learning;
-6. prints one JSON line with the kernels' numbers and, last, one JSON line
+5. drives this slice's path, planning from a semantic vector alone:
+   ``plan_resynth(target_acoustic=None, target_semvec=..., target_seq_length=
+   201, initialize_from="semvec", objective="semvec")`` with continue-
+   learning of both models, the semvec taken by the port's embedder from
+   the synthesised target's mel (the mel generator makes the target mel,
+   Griffin-Lim its audio, the cp generator the initial trajectory); checks
+   the losses, the plan's and the target signal's shapes and that B1-B4
+   each launched during its run;
+6. holds short plans on the card (float32) against the CPU (float64),
+   without and with continue-learning, and a short semvec-only plan;
+7. prints one JSON line with the kernels' numbers and, last, one JSON line
    with the device.
 
 Exits non-zero on any failure, and when no CUDA device is present.
@@ -44,6 +52,8 @@ import torch
 
 from paule_tpu_torch import synth
 from paule_tpu_torch.api import Paule
+from paule_tpu_torch.dsp.griffinlim import mel_to_sig
+from paule_tpu_torch.dsp.targets import audio_target_to_mel
 from paule_tpu_torch.ops import lstm_kernels as K
 from paule_tpu_torch.ops.normalize import inv_normalize_cp
 from paule_tpu_torch.tools import kernel_ceiling_probes as P
@@ -544,6 +554,83 @@ def drive_continue_learning(paule, target, step_ms):
     return ok, launches
 
 
+def target_semvec(paule, target):
+    """The semantic vector ``(300,)`` that ``paule``'s embedder gives the
+    target mel of the audio ``target``."""
+    _sig, _sr, mel = audio_target_to_mel(target, device=paule.device,
+                                         dtype=paule.dtype)
+    with torch.no_grad():
+        semvec = paule.embedder(torch.as_tensor(
+            mel[None], dtype=paule.dtype, device=paule.device))
+    return semvec[0].cpu().numpy().astype(np.float64)
+
+
+def drive_semvec(paule, target):
+    """This slice's path: plan from a semantic vector alone, the port's
+    embedder's semvec of ``target``'s mel, at ``target_seq_length=201``
+    (``initialize_from="semvec", objective="semvec"``), with continue-
+    learning of both models, ``n_outer=2, n_inner=24, log_ii=1``.  Called
+    twice; the warm call's launches and phase split are reported.  Also
+    times Griffin-Lim alone on the card.  -> ok."""
+    n_outer, n_inner, n_frames = 2, 24, 201
+    semvec = target_semvec(paule, target)
+    kw = dict(target_acoustic=None, target_semvec=semvec,
+              target_seq_length=n_frames, initialize_from="semvec",
+              objective="semvec", n_outer=n_outer, n_inner=n_inner,
+              log_ii=1, continue_learning=True, continue_learning_inv=True,
+              verbose=False)
+    label = (f"plan_resynth(target_acoustic=None, target_seq_length="
+             f"{n_frames}, initialize_from='semvec', objective='semvec', "
+             f"continue_learning=True, continue_learning_inv=True, n_outer="
+             f"{n_outer}, n_inner={n_inner}, log_ii=1)")
+    timed_plan(paule, kw, label + ", first call")
+    r, launches, t = timed_plan(paule, kw, "  second call")
+    gl_ms = cuda_ms(lambda: mel_to_sig(r.target_mel, device=paule.device,
+                                       dtype=paule.dtype), 3)
+    print(f"  planning {t['planning'] / (n_outer * n_inner) * 1e3:.2f} ms per "
+          f"inner step; continue-learning {t['continue_learning'] / n_outer:.3f}"
+          f" s per outer iteration")
+    print(f"  Griffin-Lim (mel_to_sig, 32 iterations, {n_frames} frames), "
+          f"one call: {gl_ms:.3f} ms (CUDA events, its host part included)")
+    print(f"  planned_loss_steps[0, -1] {r.planned_loss_steps[0]:.6f} "
+          f"{r.planned_loss_steps[-1]:.6f}; pred_semvec_loss_steps[0, -1] "
+          f"{r.pred_semvec_loss_steps[0]:.6f} "
+          f"{r.pred_semvec_loss_steps[-1]:.6f}")
+    print(f"  pred_model_loss {r.pred_model_loss}")
+    print(f"  inv_model_loss {r.inv_model_loss}")
+    print(f"  target_sig {len(r.target_sig)} samples, peak "
+          f"{np.abs(r.target_sig).max():.4f}; planned_cp "
+          f"{r.planned_cp.shape}")
+    print(f"  launches during the run: {launches}")
+    ok = check_losses(r, n_outer * n_inner, 2 * n_frames, "semvec path")
+    n_sig = 220 * n_frames - 110
+    if (r.target_sr != 44100 or r.target_sig.shape != (n_sig,)
+            or not np.isfinite(r.target_sig).all()):
+        print(f"semvec path: target_sig {r.target_sig.shape} at "
+              f"{r.target_sr} Hz, expected ({n_sig},) at 44100",
+              file=sys.stderr)
+        ok = False
+    model_losses = r.pred_model_loss + r.inv_model_loss
+    if (len(r.pred_model_loss) != 10 * n_outer
+            or len(r.inv_model_loss) != 10 * n_outer
+            or not np.isfinite(model_losses).all()):
+        print("semvec path: missing or non-finite model losses",
+              file=sys.stderr)
+        ok = False
+    if not all(launches.values()):
+        print("semvec path: a kernel was not launched", file=sys.stderr)
+        ok = False
+    return ok
+
+
+def rel_errs(out, series):
+    """Per series, the largest relative error of the card's run
+    (``out["cuda"]``) against the CPU's."""
+    return {s: float(np.max(np.abs(out["cuda"][s] - out["cpu"][s])
+                            / np.abs(out["cpu"][s]), initial=0.0))
+            for s in series}
+
+
 def check_against_cpu(continue_learning):
     """The same short plan on the card (float32, kernels) and on the CPU
     (float64, plain versions): the planned and produced losses, and the
@@ -563,15 +650,54 @@ def check_against_cpu(continue_learning):
         finally:
             paule.close()
         out[dev] = {s: np.array(getattr(r, s)) for s in series}
-    errs = {s: float(np.max(np.abs(out["cuda"][s] - out["cpu"][s])
-                            / np.abs(out["cpu"][s]), initial=0.0))
-            for s in series}
+    errs = rel_errs(out, series)
     err = max(errs.values())
     print(f"short plan (continue_learning={continue_learning}), card f32 vs "
           f"CPU f64: {sum(len(v) for v in out['cpu'].values())} losses, max "
           f"rel err {err:.3e} (tol {PLAN_RTOL}); per series " + ", ".join(
               f"{s} {e:.1e}" for s, e in errs.items()))
     return err <= PLAN_RTOL
+
+
+def check_semvec_against_cpu():
+    """A short semvec-only plan on the card (float32) and on the CPU
+    (float64) from the same seed, so the same noise (drawn in float64 on
+    the CPU): the generators' target mel and initial trajectory, and the
+    planned loss series, agree.  The produced losses are printed, not
+    held: the synthesizer's audio is not continuous in the cp for the cp
+    generator's trajectories, so float32 rounding moves it by ~1e-3
+    (tests/test_torch_semvec.py)."""
+    target = synth_target(42, seed=1)
+    planned = ("planned_loss_steps", "planned_mel_loss_steps",
+               "pred_semvec_loss_steps")
+    produced = ("prod_loss_steps", "prod_semvec_loss_steps")
+    out, arrays = {}, {}
+    semvec = None
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        paule = Paule(device=dev, dtype=dtype, seed=7)
+        try:
+            if semvec is None:
+                semvec = target_semvec(paule, target)
+            r = paule.plan_resynth(
+                target_acoustic=None, target_semvec=semvec,
+                target_seq_length=21, initialize_from="semvec",
+                objective="semvec", n_outer=1, n_inner=3, log_ii=1,
+                continue_learning=False, verbose=False)
+        finally:
+            paule.close()
+        out[dev] = {s: np.array(getattr(r, s)) for s in planned + produced}
+        arrays[dev] = (r.target_mel, r.initial_cp)
+    errs = rel_errs(out, planned)
+    err = max(errs.values())
+    gen_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(arrays["cuda"], arrays["cpu"]))
+    print(f"short semvec-only plan, card f32 vs CPU f64: generators' target "
+          f"mel and initial cp max|err| {gen_err:.3e} (tol {PLAN_RTOL}); "
+          f"planned losses max rel err {err:.3e} (tol {PLAN_RTOL}); per "
+          "series " + ", ".join(f"{s} {e:.1e}" for s, e in errs.items())
+          + "; produced, not held: " + ", ".join(
+              f"{s} {e:.1e}" for s, e in rel_errs(out, produced).items()))
+    return err <= PLAN_RTOL and gen_err <= PLAN_RTOL
 
 
 def main():
@@ -628,11 +754,15 @@ def main():
         ok_cl, launches = drive_continue_learning(paule, target, {
             "pred": core8["lstm_fwd"]["ms"] + core8["lstm_bwd"]["ms"],
             "inv": core_inv8["lstm_fwd"]["ms"] + core_inv8["lstm_bwd"]["ms"]})
+        print("semvec path:")
+        ok_sem = drive_semvec(paule, target)
     finally:
         paule.close()
     ok_cpu = check_against_cpu(False)
     ok_cpu_cl = check_against_cpu(True)
-    ok = ok and ok_p and ok_plan and ok_cl and ok_cpu and ok_cpu_cl
+    ok_cpu_sem = check_semvec_against_cpu()
+    ok = (ok and ok_p and ok_plan and ok_cl and ok_sem and ok_cpu
+          and ok_cpu_cl and ok_cpu_sem)
 
     kernels = []
     for k in K.KERNELS:

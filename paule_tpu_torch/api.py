@@ -1,10 +1,17 @@
 """The :class:`Paule` facade of the port (counterpart of
-``paule_tpu/api.py``), for the main path: ``plan_resynth(target_acoustic=
-<wav path or (sig, sr)>, initialize_from="acoustic", objective="acoustic" |
-"acoustic_semvec", continue_learning=True)``, with ``past_cp`` and the
-inverse model's continue-learning.
+``paule_tpu/api.py``): ``plan_resynth`` towards an acoustic target (a WAV
+path, ``(sig, sr)`` or a normalised mel), or towards a semantic vector
+alone (``target_acoustic=None``, ``target_semvec`` and
+``target_seq_length``: the mel generator makes the target mel, Griffin-Lim
+its audio), initialised from the inverse model (``initialize_from=
+"acoustic"``) or from the cp generator (``"semvec"``), under the
+objectives ``"acoustic"``, ``"semvec"`` and ``"acoustic_semvec"``, with
+``past_cp`` and continue-learning of the predictive and inverse models;
+weights from the in-repo release, a reference ``pretrained_models/`` tree,
+a seeded random initialisation or injected trees; ``save_state`` and
+``load_state``.
 
-Options outside that path raise ``NotImplementedError`` naming the
+Options outside the port raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them.  Synthesis, the produced-audio metrics and
 continue-learning run synchronously after each outer iteration's planning
 segment; the JAX package's overlap and deferred-fetch machinery is
@@ -14,25 +21,43 @@ results are the same.
 
 import contextlib
 import os
+import pickle
 import random
 import time
 
 import numpy as np
 import torch
 
+from . import checkpoint as CK
 from . import synth
+from .dsp.griffinlim import mel_to_sig
 from .dsp.mel import librosa_melspec, melspec_44100
 from .dsp.targets import audio_target_to_mel
+from .models import torch_convert as TC
+from .models.blocks import init_random
 from .models.embedder import EmbeddingModel
 from .models.forward import ForwardModel
+from .models.generative import Generator
 from .models.inverse import InverseModelMelTimeSmoothResidual
 from .ops.normalize import inv_normalize_cp, normalize_mel
 from .planning import engine
 from .planning.engine import MEL_WEIGHT, SEMANTIC_WEIGHT
 from .planning.results import (BestSynthesisAcoustic, BestSynthesisSemantic,
                                PlanningResults)
-from .planning.trainer import ModelTrainer, ReplayBuffer, train_epochs
+from .planning.trainer import (ModelTrainer, ReplayBuffer,
+                               create_epoch_batches, train_epochs)
 from .release import load_into, load_release
+
+#: model key -> (converter kind, sub-directory of a reference
+#: ``pretrained_models/`` tree), as ``paule_tpu/api.py:362-372`` reads them
+#: for the models the port has
+PRETRAINED = {
+    "predictive": ("forward", "predictive"),
+    "inverse": ("inverse", "inverse"),
+    "embedder": ("embedder", "embedder"),
+    "cp_gan": ("generator", "cp_gan"),
+    "mel_gan": ("generator", "mel_gan"),
+}
 
 
 @contextlib.contextmanager
@@ -50,13 +75,42 @@ def _np(t):
 
 
 class Paule:
-    """The predictive, inverse and embedder models with the release
-    weights, their continue-learning trainers and replay buffer, the
-    synthesizer pool, and the best-synthesis trackers.
+    """The predictive, inverse and embedder models, the cp and mel
+    generators, the predictive and inverse models' continue-learning
+    trainers and replay buffer, the synthesizer (the "plant"), and the
+    best-synthesis trackers; the keyword surface of
+    ``paule_tpu.api.Paule``.
 
     ``device=None`` means ``"cuda"``, which raises when no CUDA device is
     present; pass ``device="cpu"`` to run on the CPU (the LSTM kernels'
-    plain versions).
+    plain versions).  ``dtype=None`` means float32.
+
+    Weights (``paule_tpu/api.py:322-395``): ``pretrained_dir=None`` loads
+    the in-repo release; ``"random"`` gives a seeded random initialisation
+    drawn from :attr:`generator` (the port's own values, not JAX's); a
+    path reads a reference ``pretrained_models/`` tree of ``.pt`` state
+    dicts, a model whose file is missing or does not convert falling back
+    to the seeded random initialisation, and a directory that does not
+    exist raises ``FileNotFoundError``.  ``pred_model``, ``inv_model``,
+    ``embedder``, ``cp_gen_model`` and ``mel_gen_model`` inject parameter
+    trees in the JAX package's layout (nested dicts and lists of arrays),
+    which take precedence.  The optimizer arguments are accepted and
+    ignored, as in the JAX package.
+
+    ``plant`` is the synthesizer planning drives: an object with
+    ``speak(cp (T, 30)) -> (audio, sr)`` and, for one call per outer
+    iteration, ``speak_batch(cps (L, T, 30)) -> (audio (L, n), sr, errors
+    (L,))`` (denormalised trajectories); the default is a
+    :class:`~paule_tpu_torch.synth.SynthPool`.  With
+    ``synthesis_error="skip"`` a snapshot whose synthesis fails is replaced
+    by silence and planning goes on; ``"raise"`` raises.
+
+    ``synthesis_async=False`` synthesises trajectory by trajectory through
+    ``plant.speak``, as the JAX package does.  ``plan_overlap`` is
+    accepted: the port runs synthesis and metrics after each outer
+    iteration's planning segment, synchronously, until ROADMAP.md item 8e;
+    the JAX package's overlap is numerically exact
+    (``paule_tpu/api.py:122-138``), so the results do not depend on it.
 
     ``continue_data`` seeds the replay buffer: a mapping from the columns
     of :data:`~paule_tpu_torch.planning.trainer.COLUMNS` to equal-length
@@ -65,14 +119,33 @@ class Paule:
     produced snapshots train the models within each ``plan_resynth`` call
     but are not kept across calls."""
 
-    def __init__(self, *, device=None, dtype=torch.float32, seed=20200905,
-                 speaker="default", smiling=False, continue_data=None,
-                 use_somatosensory_feedback=False,
-                 use_speech_classifier=False):
+    def __init__(self, *, pred_model=None, pred_optimizer=None,
+                 inv_model=None, inv_optimizer=None, embedder=None,
+                 cp_gen_model=None, mel_gen_model=None,
+                 use_somatosensory_feedback=False, cp_tube_model=None,
+                 tube_optimizer=None, tube_mel_model=None,
+                 tube_mel_optimizer=None, tube_embedder=None,
+                 continue_data=None, device=None, smiling=False,
+                 use_speech_classifier=False, speech_classifier=None,
+                 speech_classifier_optimizer=None, pretrained_dir=None,
+                 seed=20200905, dtype=None, synthesis_async=True,
+                 synthesis_error="raise", physical_forward=False,
+                 speaker="default", plan_overlap=True, plant=None):
+        # the optimizers are made here; the variants' models come with
+        # their variants; planning runs without overlap (class docstring)
+        del pred_optimizer, inv_optimizer, tube_optimizer, tube_mel_optimizer
+        del speech_classifier_optimizer, cp_tube_model, tube_mel_model
+        del tube_embedder, speech_classifier, plan_overlap
         if use_somatosensory_feedback or use_speech_classifier:
             raise NotImplementedError(
                 "the somatosensory and speech-classifier variants are not "
                 "ported yet (ROADMAP.md, 'Modules to port', item 10)")
+        if physical_forward:
+            raise NotImplementedError(
+                "physical_forward (the spectral forward model) is not ported "
+                "yet (ROADMAP.md, 'Modules to port', item 12)")
+        if synthesis_error not in ("raise", "skip"):
+            raise ValueError("synthesis_error must be 'raise' or 'skip'")
         self.device = torch.device(device or "cuda")
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -85,35 +158,46 @@ class Paule:
             # port sets it.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.dtype = dtype
+        self.dtype = dtype or torch.float32
         self.smiling = smiling
-        #: explicit generator for the port's tensor randomness
+        self.use_speech_classifier = False
+        self.use_somatosensory_feedback = False
+        self.synthesis_async = synthesis_async
+        self.synthesis_error = synthesis_error
+        #: the port's randomness: the random initialisation and the
+        #: generators' noise (CPU, so that a seed draws the same values
+        #: for every device)
         self.generator = torch.Generator().manual_seed(seed)
         #: batching and replay sampling draw from this, call for call as
         #: the JAX package draws (``paule_tpu/api.py:150``)
         self._py_rng = random.Random(seed)
 
-        weights, _meta = load_release()
-        kw = {"device": self.device, "dtype": dtype}
-        self.pred_model = load_into(
+        trees = self._resolve_weights(pretrained_dir)
+        self.pred_model = self._model(
             ForwardModel(num_lstm_layers=1, hidden_size=720),
-            weights["predictive"], **kw).eval()
-        self.inv_model = load_into(
+            pred_model, trees.get("predictive"))
+        self.inv_model = self._model(
             InverseModelMelTimeSmoothResidual(num_lstm_layers=1,
                                               hidden_size=720),
-            weights["inverse"], **kw).eval()
-        self.embedder = load_into(
-            EmbeddingModel(num_lstm_layers=2, hidden_size=720),
-            weights["embedder"], **kw).eval()
+            inv_model, trees.get("inverse"))
+        self.embedder = self._model(
+            EmbeddingModel(num_lstm_layers=2, hidden_size=720), embedder,
+            trees.get("embedder"))
+        self.cp_gen_model = self._model(Generator(), cp_gen_model,
+                                        trees.get("cp_gan"))
+        self.mel_gen_model = self._model(Generator(output_size=60),
+                                         mel_gen_model, trees.get("mel_gan"))
         # frozen: planning takes no weight gradients; the trainers unfreeze
         # their model only inside a training step
-        self.embedder.requires_grad_(False)
+        for frozen in (self.embedder, self.cp_gen_model, self.mel_gen_model):
+            frozen.requires_grad_(False)
         self.pred_trainer = ModelTrainer(self.pred_model, loss="rmse")
         self.inv_trainer = ModelTrainer(self.inv_model, loss="cp_trajectory")
         self.continue_data = ReplayBuffer(continue_data, rng=self._py_rng)
 
         self.synth_pool = synth.SynthPool(size=min(8, os.cpu_count() or 2),
                                           speaker_path=speaker)
+        self.plant = plant if plant is not None else self.synth_pool
         self.best_synthesis_acoustic = None
         self.best_synthesis_semantic = None
         #: per-phase wall-clock split of the most recent plan_resynth
@@ -121,6 +205,66 @@ class Paule:
 
     def close(self):
         self.synth_pool.close()
+
+    # ------------------------------------------------------------------
+    # weights and state
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _resolve_weights(pretrained_dir):
+        """-> {model key: JAX-layout tree} of the weights that
+        ``pretrained_dir`` names; a missing key means a random
+        initialisation."""
+        if pretrained_dir == "random":
+            return {}
+        if pretrained_dir is None:
+            return load_release()[0]
+        if not os.path.isdir(pretrained_dir):
+            raise FileNotFoundError(
+                f"pretrained_dir {pretrained_dir!r} does not exist")
+        found = {}
+        for key, (kind, subdir) in PRETRAINED.items():
+            d = os.path.join(pretrained_dir, subdir)
+            if not os.path.isdir(d):
+                continue
+            files = sorted(f for f in os.listdir(d) if f.endswith(".pt"))
+            if not files:
+                continue
+            path = os.path.join(d, files[0])
+            try:
+                found[key] = TC.convert(kind, path)
+            except (OSError, RuntimeError, KeyError, ValueError,
+                    pickle.UnpicklingError) as exc:
+                # as the JAX package: the model falls back to random
+                print(f"could not convert {path}: {exc}")
+        return found
+
+    def _model(self, module, injected, tree):
+        """``module`` on the device, filled from the injected tree, else
+        from ``tree``, else from the seeded random initialisation; in eval
+        mode."""
+        tree = injected if injected is not None else tree
+        if tree is None:
+            module.to(device=self.device, dtype=self.dtype)
+            init_random(module, self.generator)
+        else:
+            load_into(module, tree, device=self.device, dtype=self.dtype)
+        return module.eval()
+
+    def save_state(self, path):
+        """Write the models' parameters, the trainers' Adam states, the
+        random generator's state and the replay buffer to one file
+        (:mod:`paule_tpu_torch.checkpoint`)."""
+        CK.save(path, CK.paule_state(self))
+
+    def load_state(self, path):
+        """Restore a file written by :meth:`save_state`; -> ``self``."""
+        CK.restore_paule_state(self, CK.load(path))
+        return self
+
+    # ------------------------------------------------------------------
+    # helpers
+    # ------------------------------------------------------------------
 
     def _tensor(self, x):
         """A copy of ``x`` on the device (never a view of a numpy array
@@ -132,15 +276,72 @@ class Paule:
         with torch.no_grad():
             return self.embedder(mel)
 
-    def _synthesize(self, cps_norm):
-        """Normalised cp ``(L, T, 30)`` -> audio ``(L, n)``, sr."""
-        cps = inv_normalize_cp(np.asarray(cps_norm, dtype=np.float64))
+    def _noise(self):
+        """The generators' noise ``(1, 1, 100)``: drawn in float64 from
+        :attr:`generator` on the CPU, then cast and moved to the device, so
+        that a seed gives the same noise on every device."""
+        noise = torch.randn((1, 1, 100), generator=self.generator,
+                            dtype=torch.float64)
+        return noise.to(device=self.device, dtype=self.dtype)
+
+    def _generate(self, gen, length, semvec):
+        """``gen`` (a :class:`Generator`) at ``length`` steps from fresh
+        noise and ``semvec (1, 300)`` on the device -> ``(1, length, C)``."""
+        noise = self._noise()
+        with torch.no_grad():
+            return gen(noise, int(length), semvec.reshape(1, 300))
+
+    def _speak(self, cp_norm):
+        """One normalised trajectory ``(T, 30)`` through ``plant.speak``
+        -> ``(audio, sr)``; a non-finite trajectory or audio raises."""
+        cps = inv_normalize_cp(np.asarray(cp_norm, dtype=np.float64))
         if not np.isfinite(cps).all():
             raise ValueError("non-finite cp trajectory (planning diverged?)")
-        audio, sr, errors = self.synth_pool.speak_batch(cps)
-        if errors.any() or not np.isfinite(audio).all():
-            raise ValueError(f"synthesis failed (error codes {errors})")
-        return audio, sr
+        sig, sr = self.plant.speak(cps)
+        if not np.isfinite(sig).all():
+            raise ValueError("synthesizer produced non-finite audio")
+        return np.asarray(sig, dtype=np.float64), sr
+
+    @staticmethod
+    def _silence(i, why, n_samples):
+        """The stand-in for snapshot ``i``, whose synthesis failed, under
+        ``synthesis_error="skip"``."""
+        print(f"WARNING: synthesis of snapshot {i} failed ({why}); "
+              "substituting silence")
+        return np.zeros(n_samples)
+
+    def _synthesize(self, snapshots):
+        """Normalised cp ``(L, T, 30)`` -> audio ``(L, n)``, sr: one
+        ``plant.speak_batch`` call when the plant has it, else
+        ``plant.speak`` per trajectory; a failed snapshot raises, or
+        becomes silence (``paule_tpu/api.py:582-656``, ``:1153-1194``)."""
+        snapshots = np.asarray(snapshots, dtype=np.float64)
+        sigs = []
+        if self.synthesis_async and hasattr(self.plant, "speak_batch"):
+            audio, sr, errors = self.plant.speak_batch(
+                inv_normalize_cp(snapshots))
+            for i, sig in enumerate(audio):
+                if errors[i] == 0 and np.isfinite(sig).all():
+                    sigs.append(sig)
+                    continue
+                why = f"error code {int(errors[i])}"
+                if self.synthesis_error == "raise":
+                    raise ValueError(
+                        f"synthesis of snapshot {i} failed ({why}; -1 = "
+                        "non-finite trajectory, planning diverged?)")
+                sigs.append(self._silence(i, why, audio.shape[1]))
+            return np.stack(sigs), sr
+        for i, snapshot in enumerate(snapshots):
+            try:
+                sig, sr = self._speak(snapshot)
+            except Exception as exc:  # noqa: BLE001  (the policy decides)
+                if self.synthesis_error == "raise":
+                    raise
+                sig = self._silence(i, exc, max(0, snapshot.shape[0] - 1)
+                                    * synth.FRAME_STEPS)
+                sr = synth.SAMPLE_RATE
+            sigs.append(sig)
+        return np.stack(sigs), sr
 
     def _prod_metrics(self, sigs, target_mel, target_semvec, want_semvec):
         """Produced-audio metrics of all logged snapshots in one batch:
@@ -159,11 +360,23 @@ class Paule:
                     ((prod_semvec - target_semvec) ** 2).mean(dim=1))
         return {k: _np(v) for k, v in out.items()}, prod_mel
 
+    def create_epoch_batches(self, df_length, batch_size, shuffle=True,
+                             same_size_batching=False,
+                             sorted_training_length_keys=None,
+                             training_length_dict=None):
+        """Batch indices for one epoch, drawn from the instance's Python
+        generator (``paule_tpu/api.py:666-674``)."""
+        del sorted_training_length_keys
+        return create_epoch_batches(
+            df_length, batch_size, shuffle=shuffle,
+            same_size_batching=same_size_batching,
+            training_length_dict=training_length_dict, rng=self._py_rng)
+
     def plan_resynth(self, *, learning_rate_planning=0.01,
                      learning_rate_learning=0.001,
                      learning_rate_learning_inv=None,
                      target_acoustic=None, target_semvec=None,
-                     initial_cp=None, past_cp=None,
+                     target_seq_length=None, initial_cp=None, past_cp=None,
                      initialize_from="acoustic", objective="acoustic",
                      n_outer=5, n_inner=24, continue_learning=True,
                      continue_learning_inv=False,
@@ -172,12 +385,19 @@ class Paule:
                      add_training_data_inv=False,
                      n_batches=3, batch_size=8, n_epochs=10,
                      log_ii=1, log_semantics=True, log_gradients=False,
-                     log_signals=False, log_cps=False, seed=None,
+                     log_signals=False, log_cps=False, plot=False, seed=None,
                      verbose=True):
         """Plan a cp trajectory that resynthesises ``target_acoustic`` (a
-        WAV path, ``(sig, sr)`` or a normalised target mel ``(T, 60)``);
-        argument surface and results of
-        ``paule_tpu.api.Paule.plan_resynth``.
+        WAV path, ``(sig, sr)`` or a normalised target mel ``(T, 60)``), or,
+        with ``target_acoustic=None``, the target mel the mel generator
+        makes from noise and ``target_semvec`` at ``target_seq_length``
+        frames (its audio, ``target_sig``, by Griffin-Lim); argument surface
+        and results of ``paule_tpu.api.Paule.plan_resynth``.
+
+        ``initialize_from="acoustic"`` starts from the inverse model's cp
+        of the target mel, ``"semvec"`` from the cp generator's at twice
+        the target's frames, from noise and the target semvec (given, or
+        the embedder's of the target mel).
 
         With ``continue_learning``, each outer iteration then trains the
         predictive model (and, with ``continue_learning_inv``, the inverse
@@ -189,19 +409,20 @@ class Paule:
         if seed:
             self.generator.manual_seed(seed)
             self._py_rng.seed(seed)
+        if target_acoustic is None and target_semvec is None:
+            raise ValueError(
+                "Either target_acoustic or target_semvec has to be not None.")
         if objective not in engine.OBJECTIVES:
             raise ValueError("objective has to be one of 'acoustic_semvec', "
                              "'acoustic' or 'semvec'")
-        if objective == "semvec" or initialize_from == "semvec" or (
-                target_acoustic is None):
-            raise NotImplementedError(
-                "semvec objectives, semvec initialisation and semvec-only "
-                "targets are not ported yet (ROADMAP.md, 'Modules to port', "
-                "item 9)")
         if continue_learning_tube:
             raise NotImplementedError(
                 "continue_learning_tube (the somatosensory models) is not "
                 "ported yet (ROADMAP.md, 'Modules to port', item 10)")
+        if plot:
+            raise NotImplementedError(
+                "plot (paule_tpu/visualize.py) is not ported yet (ROADMAP.md,"
+                " 'Modules to port', item 12)")
         if learning_rate_learning:
             self.pred_trainer.set_learning_rate(learning_rate_learning)
         if learning_rate_learning_inv:
@@ -214,35 +435,55 @@ class Paule:
         if past_cp is not None and past_cp.shape[0] % 2 != 0:
             raise ValueError("past_cp have to be None or the sequence length "
                              "has to be an even number")
-        want_semvec = objective == "acoustic_semvec" or log_semantics
+        want_semvec = objective != "acoustic" or log_semantics
 
         # ---------------- target ----------------
         target_sig = target_sr = None
+        if target_semvec is not None:
+            target_semvec = np.asarray(target_semvec,
+                                       dtype=np.float64).reshape(1, 300)
         if isinstance(target_acoustic, str) or (
                 isinstance(target_acoustic, (tuple, list))
                 and len(target_acoustic) == 2):
             target_sig, target_sr, mel = audio_target_to_mel(
                 target_acoustic, device=self.device, dtype=self.dtype)
             target_mel = mel[None]
-        else:
+            target_seq_length = target_mel.shape[1]
+        elif target_acoustic is not None:
             target_mel = np.asarray(target_acoustic, dtype=np.float64)
             if target_mel.ndim == 2:
                 target_mel = target_mel[None]
+            target_seq_length = target_mel.shape[1]
+        elif target_seq_length is None:
+            raise ValueError("if target_acoustic is None you need to give a "
+                             "target_seq_length and a target_semvec")
+        else:
+            # the mel generator's target (paule_tpu/api.py:759-767); the
+            # mel is not min-shifted, unlike an audio target's
+            target_mel = _np(self._generate(
+                self.mel_gen_model, target_seq_length,
+                self._tensor(target_semvec)))
+            target_sig, target_sr = mel_to_sig(
+                target_mel[0], device=self.device, dtype=self.dtype)
         target_mel_dev = self._tensor(target_mel)
         if target_semvec is None:
             target_semvec_dev = self._embed(target_mel_dev)
         else:
-            target_semvec_dev = self._tensor(
-                np.asarray(target_semvec).reshape(1, 300))
+            target_semvec_dev = self._tensor(target_semvec)
 
         # ---------------- cp initialisation ----------------
         if initial_cp is None:
-            if initialize_from != "acoustic":
+            if initialize_from == "acoustic":
+                with torch.no_grad():
+                    cp = self.inv_model(target_mel_dev)
+                initial_cp = np.clip(_np(cp)[0], -1.0, 1.0)
+            elif initialize_from == "semvec":
+                initial_cp = _np(self._generate(
+                    self.cp_gen_model, 2 * int(target_seq_length),
+                    target_semvec_dev))[0]
+            else:
                 raise ValueError(
                     "initialize_from has to be either 'acoustic' or 'semvec'")
-            with torch.no_grad():
-                cp = self.inv_model(target_mel_dev)
-            initial_cp = np.clip(_np(cp)[0], -1.0, 1.0)
         else:
             if initialize_from is not None:
                 raise ValueError(
@@ -268,8 +509,7 @@ class Paule:
             initial_pred_mel_dev = self.pred_model(xx)
             initial_pred_semvec = _np(self._embed(initial_pred_mel_dev))[0]
         initial_pred_mel = _np(initial_pred_mel_dev)[0]
-        audio, initial_sr = self._synthesize(initial_cp[None])
-        initial_sig = audio[0]
+        initial_sig, initial_sr = self._speak(initial_cp)
         initial_prod_mel = normalize_mel(librosa_melspec(
             initial_sig, initial_sr, device=self.device, dtype=self.dtype))
         if past_len:

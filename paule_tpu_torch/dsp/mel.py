@@ -66,6 +66,12 @@ def mel_filterbank():
     return np.ascontiguousarray(weights.T)
 
 
+def _hann_periodic(n=N_FFT):
+    """The periodic Hann window of ``n`` samples, float64."""
+    k = np.arange(n)
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * k / n)
+
+
 @functools.lru_cache(maxsize=1)
 def rfft_basis():
     """Hann-windowed real-DFT basis ``(n_fft, 2*n_bins)``: [cos | -sin]."""
@@ -73,8 +79,7 @@ def rfft_basis():
     t = np.arange(N_FFT).reshape(-1, 1)
     k = np.arange(n_bins).reshape(1, -1)
     ang = 2.0 * np.pi * t * k / N_FFT
-    win = (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(N_FFT) / N_FFT))
-    win = win.reshape(-1, 1)
+    win = _hann_periodic().reshape(-1, 1)
     return np.concatenate([np.cos(ang) * win, -np.sin(ang) * win], axis=1)
 
 

@@ -6,6 +6,8 @@ state-dict names follow the JAX parameter trees, so
 :func:`paule_tpu_torch.release.params_from_jax` fills them directly.
 """
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,6 +37,27 @@ def interleave_channels(a, b):
     return torch.stack([a, b], dim=-1).reshape(bsz, t, 2 * c)
 
 
+def batchnorm(x, scale, bias, mean, var, eps=1e-5):
+    """Inference-mode batch norm over ``x (B, T, C)`` with the running
+    statistics ``mean`` and ``var`` per channel."""
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def upsample_linear(x, size):
+    """``torch.nn.Upsample(mode="linear", align_corners=False)`` over time
+    on ``x (B, T, C)``, as the JAX package computes it."""
+    t = x.shape[1]
+    if t == size:
+        return x
+    pos = (torch.arange(size, dtype=torch.float64) + 0.5) * (t / size) - 0.5
+    pos = pos.clamp(0.0, t - 1.0)
+    lo = pos.floor().long()
+    hi = torch.clamp(lo + 1, max=t - 1)
+    frac = (pos - lo).to(x.dtype).to(x.device)[None, :, None]
+    lo, hi = lo.to(x.device), hi.to(x.device)
+    return x[:, lo, :] * (1.0 - frac) + x[:, hi, :] * frac
+
+
 def gather_last_step(output, lens):
     """Per-sample hidden state at index ``lens - 1`` (clamped into range):
     ``(B, T, H), (B,) -> (B, H)``; ``lens=None`` means the last step."""
@@ -43,6 +66,27 @@ def gather_last_step(output, lens):
     lens = torch.as_tensor(lens, device=output.device)
     idx = torch.clamp(lens - 1, 0, output.shape[1] - 1).long()
     return output[torch.arange(output.shape[0], device=output.device), idx]
+
+
+def _fill_uniform(param, bound, generator):
+    """Fill ``param`` in place from U(-bound, bound), drawn in float64 on
+    the CPU from ``generator`` so that a seed gives the same values on any
+    device."""
+    u = torch.rand(param.shape, generator=generator, dtype=torch.float64)
+    with torch.no_grad():
+        param.copy_((2.0 * u - 1.0) * bound)
+
+
+def init_random(module, generator):
+    """Seeded random initialisation of the linear, convolution and LSTM
+    blocks of ``module``, with the bounds of the JAX package's initialisers
+    (``paule_tpu/models/blocks.py:25-50``, ``paule_tpu/ops/lstm.py:56-67``);
+    batch norm keeps the identity it is made with.  The values are the
+    port's own: they cannot equal JAX's."""
+    for m in module.modules():
+        if hasattr(m, "init_random"):
+            m.init_random(generator)
+    return module
 
 
 class Linear(nn.Module):
@@ -55,6 +99,11 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return linear(self.w, self.b, x)
+
+    def init_random(self, generator):
+        fan_in = self.w.shape[0]
+        _fill_uniform(self.w, math.sqrt(3.0 / fan_in), generator)
+        _fill_uniform(self.b, 1.0 / math.sqrt(fan_in), generator)
 
 
 class Conv1d(nn.Module):
@@ -70,6 +119,27 @@ class Conv1d(nn.Module):
     def forward(self, x):
         return conv1d(self.w, self.b, x, groups=self.groups)
 
+    def init_random(self, generator):
+        fan_in = self.w.shape[0] * self.w.shape[1]
+        _fill_uniform(self.w, math.sqrt(3.0 / fan_in), generator)
+        _fill_uniform(self.b, 1.0 / math.sqrt(fan_in), generator)
+
+
+class BatchNorm(nn.Module):
+    """Inference-mode batch norm: parameters ``scale`` and ``bias``,
+    buffers ``mean`` and ``var`` (the running statistics), each
+    ``(channels,)``, named as the JAX tree names them."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x):
+        return batchnorm(x, self.scale, self.bias, self.mean, self.var)
+
 
 class LSTMLayer(nn.Module):
     """``w_ih (in, 4H)``, ``w_hh (H, 4H)``, ``b (4H,)``, gates i, f, g, o."""
@@ -82,6 +152,12 @@ class LSTMLayer(nn.Module):
 
     def params(self):
         return {"w_ih": self.w_ih, "w_hh": self.w_hh, "b": self.b}
+
+    def init_random(self, generator):
+        bound = 1.0 / math.sqrt(self.w_hh.shape[0])
+        _fill_uniform(self.w_ih, bound, generator)
+        _fill_uniform(self.w_hh, bound, generator)
+        _fill_uniform(self.b, 2.0 * bound, generator)
 
 
 def lstm_stack(input_size, hidden_size, num_layers):

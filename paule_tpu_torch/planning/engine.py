@@ -49,21 +49,27 @@ class Constraints(NamedTuple):
 
 def criterion(models, xx, target_mel, target_semvec, *, objective):
     """Weighted planning loss of the ``(1, T, 30)`` trajectory ``xx``.
-    -> ``(total, (SubLosses, pred_mel, pred_semvec or None))``."""
-    if objective not in ("acoustic", "acoustic_semvec"):
-        raise NotImplementedError(
-            f"objective={objective!r} is not ported yet (ROADMAP.md, "
-            "'Modules to port', item 9)")
+    -> ``(total, (SubLosses, pred_mel, pred_semvec or None))``.
+
+    The mel loss is always computed and logged, but enters the total only
+    for ``"acoustic"`` and ``"acoustic_semvec"``; the semvec loss is
+    computed, and enters the total, for ``"semvec"`` and
+    ``"acoustic_semvec"``."""
+    if objective not in OBJECTIVES:
+        raise ValueError(f"objective must be one of {OBJECTIVES}, got "
+                         f"{objective!r}")
     pred_mel = models.pred_model(xx)
     mel_w = MEL_WEIGHT * L.rmse(pred_mel, target_mel)
     vel_loss, jerk_loss = L.velocity_jerk_loss(xx, loss=L.mse)
     vel_w = VELOCITY_WEIGHT * vel_loss
     jerk_w = JERK_WEIGHT * jerk_loss
     ll_w = LOCAL_LINEAR_WEIGHT * L.local_linear_loss(xx)
-    total = vel_w + jerk_w + ll_w + mel_w
+    total = vel_w + jerk_w + ll_w
+    if objective != "semvec":
+        total = total + mel_w
     sem_w = torch.zeros_like(total)
     pred_semvec = None
-    if objective == "acoustic_semvec":
+    if objective != "acoustic":
         pred_semvec = models.embedder(pred_mel)
         sem_w = SEMANTIC_WEIGHT * L.rmse(pred_semvec, target_semvec)
         total = total + sem_w

@@ -104,11 +104,16 @@ class SynthPool:
     def speak_batch(self, cps_batch):
         """Synthesise ``B`` same-length denormalised trajectories
         ``(B, T, 30)`` in one native call.  Returns ``(audio (B, (T-1)*110),
-        44100, errors (B,))``; a nonzero ``errors[i]`` marks a failed item."""
-        cps = _check_cp(cps_batch)
-        if cps.ndim != 3 or cps.shape[0] == 0 or cps.shape[1] == 0:
+        44100, errors (B,))``; a nonzero ``errors[i]`` marks a failed item,
+        ``-1`` one that is not finite (synthesised as zeros, and its audio
+        row left unreliable)."""
+        cps = np.array(cps_batch, dtype=np.float64)
+        if cps.ndim != 3 or cps.shape[0] == 0 or cps.shape[1] == 0 or (
+                cps.shape[2] != N_CP):
             raise ValueError(f"cps_batch must be non-empty (B, T, {N_CP}), "
                              f"got {cps.shape}")
+        finite = np.isfinite(cps).all(axis=(1, 2))
+        cps[~finite] = 0.0
         b, t = cps.shape[:2]
         tract, glottis = _split_cp(cps)
         audio = np.zeros((b, (t - 1) * FRAME_STEPS))
@@ -120,6 +125,7 @@ class SynthPool:
             *([None] * 6), errors.ctypes.data)
         if failure != 0:
             raise ValueError(f"pts_synth_block_batch failed: error {failure}")
+        errors[~finite] = -1
         return audio, SAMPLE_RATE, errors
 
     def speak(self, cp_param):

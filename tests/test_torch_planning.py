@@ -1,7 +1,7 @@
 """The port's planning engine against ``paule_tpu.planning.engine``: a
 3-step segment from the same trajectory with the same (small, H=16) models
 in float64 gives the same trajectory, sub-loss series, snapshots and
-gradients; the constraint projections match."""
+gradients under each objective; the constraint projections match."""
 
 import numpy as np
 import pytest
@@ -43,7 +43,8 @@ def _setup(seed=0, seq=16):
 
 
 @pytest.mark.parametrize("objective,log_every", [
-    ("acoustic_semvec", 1), ("acoustic", 1), ("acoustic_semvec", 2)])
+    ("acoustic_semvec", 1), ("acoustic", 1), ("acoustic_semvec", 2),
+    ("semvec", 1)])
 def test_segment_matches_jax(objective, log_every):
     models, bundle, xx, tmel, tsem = _setup()
     lr, n_steps = 0.01, 3
@@ -77,24 +78,38 @@ def test_segment_matches_jax(objective, log_every):
                                    atol=ATOL, err_msg=key)
 
 
-def test_criterion_value_and_grad_match_jax():
+@pytest.mark.parametrize("objective", TEng.OBJECTIVES)
+def test_criterion_value_and_grad_match_jax(objective):
+    """The total, every sub-loss (the mel loss is logged under ``"semvec"``
+    although it is left out of the total) and the trajectory's gradient.
+    The port's criterion runs the embedder only when the objective needs
+    it, as JAX's ``plan_segment`` calls its criterion
+    (``log_semantics=False``, the semantics logged after the segment)."""
     models, bundle, xx, tmel, tsem = _setup(seed=3)
 
     def loss_j(x):
         return JEng.criterion(bundle, x, jnp.asarray(tmel),
-                              jnp.asarray(tsem), objective="acoustic_semvec",
+                              jnp.asarray(tsem), objective=objective,
                               use_speech_classifier=False,
-                              use_somatosensory=False, log_semantics=True,
-                              rng=jax.random.PRNGKey(0))[0]
+                              use_somatosensory=False, log_semantics=False,
+                              rng=jax.random.PRNGKey(0))
 
-    vj, gj = jax.value_and_grad(loss_j)(jnp.asarray(xx))
+    (vj, (subs_j, *_)), gj = jax.value_and_grad(loss_j, has_aux=True)(
+        jnp.asarray(xx))
     xt = torch.tensor(xx, requires_grad=True)
-    vt, _ = TEng.criterion(models, xt, torch.tensor(tmel),
-                           torch.tensor(tsem), objective="acoustic_semvec")
+    vt, (subs_t, _mel, pred_semvec) = TEng.criterion(
+        models, xt, torch.tensor(tmel), torch.tensor(tsem),
+        objective=objective)
     vt.backward()
     np.testing.assert_allclose(vt.item(), float(vj), rtol=0, atol=ATOL)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gj), rtol=0,
                                atol=ATOL)
+    for field in TEng.SubLosses._fields:
+        np.testing.assert_allclose(
+            getattr(subs_t, field).item(), float(getattr(subs_j, field)),
+            rtol=0, atol=ATOL, err_msg=field)
+    assert subs_t.mel_loss.item() > 0
+    assert (pred_semvec is None) == (objective == "acoustic")
 
 
 @pytest.mark.parametrize("cons", [
@@ -108,10 +123,3 @@ def test_constraints_match_jax(cons):
     xt = torch.tensor(xx)
     TEng.apply_constraints(xt, torch.tensor(init), TEng.Constraints(**cons))
     np.testing.assert_array_equal(xt.numpy(), np.asarray(ref))
-
-
-def test_semvec_objective_is_not_silently_planned():
-    models, _bundle, xx, tmel, tsem = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEng.criterion(models, torch.tensor(xx), torch.tensor(tmel),
-                       torch.tensor(tsem), objective="semvec")
