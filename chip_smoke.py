@@ -24,7 +24,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the losses and that every kernel of each path launched during its run,
    and traces one more warm call with ``torch.profiler`` (not timed) for
    the share of each phase's wall time in which the card was busy;
-5. drives this slice's path, planning from a semantic vector alone:
+5. drives the semvec path, planning from a semantic vector alone:
    ``plan_resynth(target_acoustic=None, target_semvec=..., target_seq_length=
    201, initialize_from="semvec", objective="semvec")`` with continue-
    learning of both models, the semvec taken by the port's embedder from
@@ -32,10 +32,23 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Griffin-Lim its audio, the cp generator the initial trajectory); checks
    the losses, the plan's and the target signal's shapes and that B1-B4
    each launched during its run;
-6. holds short plans on the card (float32) against the CPU (float64),
-   without and with continue-learning, and a short semvec-only plan;
-7. prints one JSON line with the kernels' numbers and, last, one JSON line
+6. drives this slice's path, the somatosensory variant
+   (``Paule(use_somatosensory_feedback=True)``: cp->tube and tube->mel
+   models at H=360, a tube embedder of two layers at H=720 with dropout 0.7
+   in planning, tube extraction in the synthesizer) with continue-learning
+   of all four trained models at the main path's budget; checks the loss
+   and tube series and that B1-B4 each launched, and counts the launches
+   per kernel and shape; then a short run of the speech-classifier variant;
+7. holds short plans on the card (float32) against the CPU (float64),
+   without and with continue-learning, a short semvec-only plan, and a
+   short somatosensory plan with continue-learning (the tube embedder's
+   dropout set to 0 on both sides);
+8. prints one JSON line with the kernels' numbers and, last, one JSON line
    with the device.
+
+The kernel phase also holds B1/B2 at the somatosensory variant's H=360
+shapes, and B3 at T=402 (the tube embedder), against their plain
+versions.
 
 Exits non-zero on any failure, and when no CUDA device is present.
 """
@@ -61,6 +74,8 @@ from paule_tpu_torch.tools.timing import (bound_ms, cuda_ms, cudnn_lstm_ms,
                                           lstm_bwd_bound, lstm_fwd_bound)
 
 H = 720
+#: the somatosensory variant's cp->tube and tube->mel models
+H_TUBE = 360
 #: tolerances of a kernel against its plain version in float32: the forward
 #: outputs in absolute terms; gradients (dgates, input and weight grads) as
 #: the relative Frobenius error, since ~400 steps of f32 recurrence summed
@@ -113,13 +128,13 @@ def build_all():
             b.result()
 
 
-def check_core(dev, gen, seq, batch):
-    """B1 and B2 at (seq, batch, H) against their plain versions."""
-    gx = _normal(gen, (seq, batch, 4 * H), 0.5, dev)
-    w = _uniform(gen, (H, 4 * H), H ** -0.5, dev)
-    h0 = _normal(gen, (batch, H), 0.1, dev)
-    c0 = _normal(gen, (batch, H), 0.1, dev)
-    gout = _normal(gen, (seq, batch, H), 1.0, dev)
+def check_core(dev, gen, seq, batch, hidden=H):
+    """B1 and B2 at (seq, batch, hidden) against their plain versions."""
+    gx = _normal(gen, (seq, batch, 4 * hidden), 0.5, dev)
+    w = _uniform(gen, (hidden, 4 * hidden), hidden ** -0.5, dev)
+    h0 = _normal(gen, (batch, hidden), 0.1, dev)
+    c0 = _normal(gen, (batch, hidden), 0.1, dev)
+    gout = _normal(gen, (seq, batch, hidden), 1.0, dev)
 
     hs, cs = K.lstm_fwd(gx, w, h0, c0)
     hs_p, cs_p = K.lstm_fwd_plain(gx, w, h0, c0)
@@ -128,7 +143,7 @@ def check_core(dev, gen, seq, batch):
 
     hs_prev = torch.cat([h0[None], hs_p[:-1]])
     cs_prev = torch.cat([c0[None], cs_p[:-1]]).contiguous()
-    acts = K.activate(gx + hs_prev @ w, H).contiguous()
+    acts = K.activate(gx + hs_prev @ w, hidden).contiguous()
     dg, dh0, dc0 = K.lstm_bwd(acts, cs_prev, gout, w)
     dg_p, dh0_p, dc0_p = K.lstm_bwd_plain(acts, cs_prev, gout, w)
     bwd_err = max_abs([(dg, dg_p), (dh0, dh0_p), (dc0, dc0_p)])
@@ -150,34 +165,34 @@ def check_core(dev, gen, seq, batch):
             seq=seq, max_abs_err=fwd_err, rel_err=None,
             ms=cuda_ms(lambda: K.lstm_fwd(gx, w, h0, c0), 20),
             plain_ms=cuda_ms(lambda: K.lstm_fwd_plain(gx, w, h0, c0), 3),
-            library_ms=cudnn_lstm_ms(30, H, 1, seq, batch, dev, False),
-            bound=lstm_fwd_bound(seq, batch, H)),
+            library_ms=cudnn_lstm_ms(30, hidden, 1, seq, batch, dev, False),
+            bound=lstm_fwd_bound(seq, batch, hidden)),
         "lstm_bwd": dict(
             seq=seq, max_abs_err=bwd_err, rel_err=max(bwd_rel, grad_rel),
             ms=cuda_ms(lambda: K.lstm_bwd(acts, cs_prev, gout, w), 20),
             plain_ms=cuda_ms(lambda: K.lstm_bwd_plain(acts, cs_prev, gout,
                                                       w), 3),
-            library_ms=cudnn_lstm_ms(30, H, 1, seq, batch, dev, True),
-            bound=lstm_bwd_bound(seq, batch, H)),
+            library_ms=cudnn_lstm_ms(30, hidden, 1, seq, batch, dev, True),
+            bound=lstm_bwd_bound(seq, batch, hidden)),
     }
-    print(f"  B1 lstm_fwd  T={seq} B={batch}: fwd max|err| {fwd_err:.3e} "
-          f"(tol {FWD_ATOL}); two calls bit-identical: {same}")
-    print(f"  B2 lstm_bwd  T={seq} B={batch}: dgates/dh0/dc0 max|err| "
-          f"{bwd_err:.3e}, rel {bwd_rel:.3e}; input/weight grads rel "
+    print(f"  B1 lstm_fwd  T={seq} B={batch} H={hidden}: fwd max|err| "
+          f"{fwd_err:.3e} (tol {FWD_ATOL}); two calls bit-identical: {same}")
+    print(f"  B2 lstm_bwd  T={seq} B={batch} H={hidden}: dgates/dh0/dc0 "
+          f"max|err| {bwd_err:.3e}, rel {bwd_rel:.3e}; input/weight grads rel "
           f"{grad_rel:.3e} (tol {GRAD_RTOL})")
     ok = (fwd_err <= FWD_ATOL and same and bwd_rel <= GRAD_RTOL
           and grad_rel <= GRAD_RTOL)
     return ok, out
 
 
-def check_stack2(dev, gen, seq, batch):
-    """B3 and B4 at (seq, batch, H) against their plain versions."""
-    g1 = _normal(gen, (seq, batch, 4 * H), 0.5, dev)
-    w1 = _uniform(gen, (H, 4 * H), H ** -0.5, dev)
-    w2 = _uniform(gen, (2 * H, 4 * H), H ** -0.5, dev)
-    b2 = _uniform(gen, (4 * H,), H ** -0.5, dev)
-    z = torch.zeros((batch, H), device=dev)
-    gout = _normal(gen, (seq, batch, H), 1.0, dev)
+def check_stack2(dev, gen, seq, batch, hidden=H):
+    """B3 and B4 at (seq, batch, hidden) against their plain versions."""
+    g1 = _normal(gen, (seq, batch, 4 * hidden), 0.5, dev)
+    w1 = _uniform(gen, (hidden, 4 * hidden), hidden ** -0.5, dev)
+    w2 = _uniform(gen, (2 * hidden, 4 * hidden), hidden ** -0.5, dev)
+    b2 = _uniform(gen, (4 * hidden,), hidden ** -0.5, dev)
+    z = torch.zeros((batch, hidden), device=dev)
+    gout = _normal(gen, (seq, batch, hidden), 1.0, dev)
 
     outs = K.lstm_stack2_fwd(g1, w1, w2, b2, z, z, z, z)
     outs_p = K.lstm_stack2_fwd_plain(g1, w1, w2, b2, z, z, z, z)
@@ -187,8 +202,8 @@ def check_stack2(dev, gen, seq, batch):
     hs1, cs1, hs2, cs2 = outs_p
     shift = lambda a: torch.cat([z[None], a[:-1]]).contiguous()  # noqa: E731
     cat2 = torch.cat([hs1, shift(hs2)], dim=-1)
-    acts1 = K.activate(g1 + shift(hs1) @ w1, H).contiguous()
-    acts2 = K.activate(b2 + cat2 @ w2, H).contiguous()
+    acts1 = K.activate(g1 + shift(hs1) @ w1, hidden).contiguous()
+    acts2 = K.activate(b2 + cat2 @ w2, hidden).contiguous()
     args = (acts1, acts2, shift(cs1), shift(cs2), gout, w1, w2)
     dg = K.lstm_stack2_bwd(*args)
     dg_p = K.lstm_stack2_bwd_plain(*args)
@@ -211,22 +226,24 @@ def check_stack2(dev, gen, seq, batch):
                        20),
             plain_ms=cuda_ms(lambda: K.lstm_stack2_fwd_plain(
                 g1, w1, w2, b2, z, z, z, z), 3),
-            library_ms=cudnn_lstm_ms(60, H, 2, seq, batch, dev, False),
-            bound=bound_ms(f32 * (seq * batch * 8 * H + 12 * H * H + 4 * H
-                                  + 4 * batch * H),
-                           seq * batch * (24 * H * H + 26 * H))),
+            library_ms=cudnn_lstm_ms(60, hidden, 2, seq, batch, dev, False),
+            bound=bound_ms(
+                f32 * (seq * batch * 8 * hidden + 12 * hidden * hidden
+                       + 4 * hidden + 4 * batch * hidden),
+                seq * batch * (24 * hidden * hidden + 26 * hidden))),
         "lstm_stack2_bwd": dict(
             seq=seq, max_abs_err=bwd_err, rel_err=max(bwd_rel, grad_rel),
             ms=cuda_ms(lambda: K.lstm_stack2_bwd(*args), 20),
             plain_ms=cuda_ms(lambda: K.lstm_stack2_bwd_plain(*args), 3),
-            library_ms=cudnn_lstm_ms(60, H, 2, seq, batch, dev, True),
-            bound=bound_ms(f32 * (seq * batch * 19 * H + 12 * H * H),
-                           seq * batch * (24 * H * H + 40 * H))),
+            library_ms=cudnn_lstm_ms(60, hidden, 2, seq, batch, dev, True),
+            bound=bound_ms(
+                f32 * (seq * batch * 19 * hidden + 12 * hidden * hidden),
+                seq * batch * (24 * hidden * hidden + 40 * hidden))),
     }
-    print(f"  B3 lstm_stack2_fwd  T={seq} B={batch}: fwd max|err| "
+    print(f"  B3 lstm_stack2_fwd  T={seq} B={batch} H={hidden}: fwd max|err| "
           f"{fwd_err:.3e} (tol {FWD_ATOL}); two calls bit-identical: {same}")
-    print(f"  B4 lstm_stack2_bwd  T={seq} B={batch}: dgates max|err| "
-          f"{bwd_err:.3e}, rel {bwd_rel:.3e}; input/weight grads rel "
+    print(f"  B4 lstm_stack2_bwd  T={seq} B={batch} H={hidden}: dgates "
+          f"max|err| {bwd_err:.3e}, rel {bwd_rel:.3e}; input/weight grads rel "
           f"{grad_rel:.3e} (tol {GRAD_RTOL})")
     ok = (fwd_err <= FWD_ATOL and same and bwd_rel <= GRAD_RTOL
           and grad_rel <= GRAD_RTOL)
@@ -491,7 +508,7 @@ def drive_continue_learning(paule, target, step_ms):
     shows that B1/B2 launch once more per training step.  ``step_ms``:
     B1 + B2 ms at each model's training shape (``"pred"``, ``"inv"``),
     timed apart, to give the kernels' share of the phase.  -> (ok,
-    launches)."""
+    launches, phase timings) of the warm call."""
     n_outer, n_inner = 2, 24
     kw = dict(target_acoustic=target, initialize_from="acoustic",
               objective="acoustic_semvec", n_outer=n_outer, n_inner=n_inner,
@@ -551,7 +568,7 @@ def drive_continue_learning(paule, target, step_ms):
         print("continue-learning path: a kernel was not launched",
               file=sys.stderr)
         ok = False
-    return ok, launches
+    return ok, launches, t
 
 
 def target_semvec(paule, target):
@@ -566,7 +583,7 @@ def target_semvec(paule, target):
 
 
 def drive_semvec(paule, target):
-    """This slice's path: plan from a semantic vector alone, the port's
+    """The semvec path: plan from a semantic vector alone, the port's
     embedder's semvec of ``target``'s mel, at ``target_seq_length=201``
     (``initialize_from="semvec", objective="semvec"``), with continue-
     learning of both models, ``n_outer=2, n_inner=24, log_ii=1``.  Called
@@ -623,6 +640,141 @@ def drive_semvec(paule, target):
     return ok
 
 
+#: the somatosensory variant's series, each one value per logged step
+TUBE_SERIES = ("prod_tube_loss_steps", "pred_tube_mel_loss_steps",
+               "prod_tube_mel_loss_steps", "pred_tube_semvec_loss_steps",
+               "prod_tube_semvec_loss_steps")
+#: the tube models' training losses, one value per epoch
+TUBE_MODEL_LOSSES = ("tube_model_loss", "tube_mel_model_loss")
+
+
+def launches_by_shape(fn):
+    """Run ``fn()`` and count the LSTM kernels' launches in it by kernel
+    and ``(T, B, H)``, from the arguments each wrapper hands the library
+    (the wrappers' own counts are untouched).  -> (fn's result, {(kernel,
+    T, B, H): launches})."""
+    tally = collections.Counter()
+    launch = K._launch
+
+    def counted(name, dev, tensors, ints):
+        tally[(name.removeprefix("paule_"), *ints[:3])] += 1
+        return launch(name, dev, tensors, ints)
+
+    K._launch = counted
+    try:
+        return fn(), dict(sorted(tally.items()))
+    finally:
+        K._launch = launch
+
+
+def drive_somatosensory(target, main_launches, main_times):
+    """This slice's path: ``Paule(use_somatosensory_feedback=True)`` at full
+    width (release weights: cp->tube and tube->mel at H=360, the tube
+    embedder's two layers at H=720) on the main path's target and budget,
+    ``objective="acoustic_semvec"``, continue-learning of the predictive,
+    inverse, cp->tube and tube->mel models, ``n_outer=2, n_inner=24``.
+    Called twice; the warm call's launches (per kernel, and per kernel and
+    shape) and phase split are reported beside the main path's
+    (``main_launches``, ``main_times``: its warm call's counts and
+    ``last_planning_timings``).  -> (ok, {(kernel, T, B, H): launches} of
+    the warm call)."""
+    n_outer, n_inner = 2, 24
+    kw = dict(target_acoustic=target, initialize_from="acoustic",
+              objective="acoustic_semvec", n_outer=n_outer, n_inner=n_inner,
+              log_ii=1, continue_learning=True, continue_learning_inv=True,
+              continue_learning_tube=True, verbose=False)
+    paule = Paule(seed=7, use_somatosensory_feedback=True)
+    try:
+        timed_plan(paule, kw, "plan_resynth(use_somatosensory_feedback=True, "
+                   "continue_learning_tube=True, continue_learning_inv=True,"
+                   f" n_outer={n_outer}, n_inner={n_inner}, log_ii=1), first "
+                   "call")
+        tube0 = paule.tube_trainer.steps + paule.tube_mel_trainer.steps
+        (r, launches, t), shapes = launches_by_shape(
+            lambda: timed_plan(paule, kw, "  second call"))
+        tube_steps = (paule.tube_trainer.steps + paule.tube_mel_trainer.steps
+                      - tube0)
+    finally:
+        paule.close()
+    steps = n_outer * n_inner
+    print(f"  planning {t['planning'] / steps * 1e3:.2f} ms per inner step "
+          f"(main path {main_times['planning'] / steps * 1e3:.2f}); "
+          f"continue-learning {t['continue_learning'] / n_outer:.3f} s per "
+          f"outer iteration (main path "
+          f"{main_times['continue_learning'] / n_outer:.3f}); synthesis "
+          f"{t['synthesis']:.3f} s, metrics {t['metrics']:.3f} s (main path "
+          f"{main_times['synthesis']:.3f}, {main_times['metrics']:.3f})")
+    print(f"  launches during the run: {launches}; main path: "
+          f"{main_launches}")
+    print("  launches by kernel and (T, B, H): " + ", ".join(
+        f"{k[0]} {k[1:]} {n}" for k, n in shapes.items()))
+    print(f"  planned_loss_steps[0, -1] {r.planned_loss_steps[0]:.6f} "
+          f"{r.planned_loss_steps[-1]:.6f}; pred_tube_semvec_loss_steps[0, "
+          f"-1] {r.pred_tube_semvec_loss_steps[0]:.6f} "
+          f"{r.pred_tube_semvec_loss_steps[-1]:.6f}")
+    print(f"  tube_model_loss {r.tube_model_loss}")
+    print(f"  tube_mel_model_loss {r.tube_mel_model_loss}")
+    ok = check_losses(r, steps, 402, "somatosensory path")
+    series = [np.asarray(getattr(r, k)) for k in TUBE_SERIES]
+    losses = [np.asarray(getattr(r, k))
+              for k in ("pred_model_loss", "inv_model_loss")
+              + TUBE_MODEL_LOSSES]
+    if (any(len(x) != steps for x in series)
+            or any(len(x) != 10 * n_outer for x in losses)
+            or not all(np.isfinite(x).all() for x in series + losses)):
+        print("somatosensory path: missing or non-finite tube series or "
+              "model losses", file=sys.stderr)
+        ok = False
+    if (len(r.prod_tube_steps) != n_outer
+            or r.prod_tube_steps[0][0].shape != (402, 10)
+            or r.pred_tube.shape != (402, 10)
+            or r.pred_tube_mel.shape != (201, 60)):
+        print("somatosensory path: bad tube shapes", file=sys.stderr)
+        ok = False
+    if tube_steps != 2 * 30 * n_outer:
+        print(f"somatosensory path: {tube_steps} tube training steps, "
+              f"expected {2 * 30 * n_outer}", file=sys.stderr)
+        ok = False
+    if not all(launches.values()):
+        print("somatosensory path: a kernel was not launched",
+              file=sys.stderr)
+        ok = False
+    return ok, shapes
+
+
+def drive_speech_classifier(target):
+    """A short run of ``Paule(use_speech_classifier=True)`` at full width:
+    ``n_outer=1, n_inner=8``, no continue-learning; checks its losses and
+    that B1-B4 each launched.  -> ok."""
+    kw = dict(target_acoustic=target, initialize_from="acoustic",
+              objective="acoustic_semvec", n_outer=1, n_inner=8, log_ii=1,
+              continue_learning=False, verbose=False)
+    paule = Paule(seed=7, use_speech_classifier=True)
+    try:
+        r, launches, t = timed_plan(
+            paule, kw, "plan_resynth(use_speech_classifier=True, n_outer=1, "
+            "n_inner=8, continue_learning=False)")
+    finally:
+        paule.close()
+    sc = np.asarray(r.pred_speech_classifier_loss_steps
+                    + r.prod_speech_classifier_loss_steps)
+    print(f"  planning {t['planning'] / 8 * 1e3:.2f} ms per inner step (one "
+          f"call, not warm); speech-classifier losses planned "
+          f"{r.pred_speech_classifier_loss_steps[-1]:.6f}, produced "
+          f"{r.prod_speech_classifier_loss_steps[-1]:.6f}; launches "
+          f"{launches}")
+    ok = check_losses(r, 8, 402, "speech-classifier path")
+    if len(sc) != 16 or not np.isfinite(sc).all():
+        print("speech-classifier path: missing or non-finite classifier "
+              "losses", file=sys.stderr)
+        ok = False
+    if not all(launches.values()):
+        print("speech-classifier path: a kernel was not launched",
+              file=sys.stderr)
+        ok = False
+    return ok
+
+
 def rel_errs(out, series):
     """Per series, the largest relative error of the card's run
     (``out["cuda"]``) against the CPU's."""
@@ -631,20 +783,31 @@ def rel_errs(out, series):
             for s in series}
 
 
-def check_against_cpu(continue_learning):
+def check_against_cpu(continue_learning, somatosensory=False):
     """The same short plan on the card (float32, kernels) and on the CPU
     (float64, plain versions): the planned and produced losses, and the
-    models' training losses with ``continue_learning``, agree."""
+    models' training losses with ``continue_learning``, agree.  With
+    ``somatosensory``, the somatosensory variant with continue-learning of
+    the tube models too, its tube series held as well, and the tube
+    embedder's dropout set to 0 on both sides (its masks are drawn on
+    each device)."""
     target = synth_target(42, seed=1)
     kw = dict(target_acoustic=target, objective="acoustic_semvec",
               n_outer=2 if continue_learning else 1, n_inner=3, log_ii=1,
               continue_learning=continue_learning,
-              continue_learning_inv=continue_learning, verbose=False)
+              continue_learning_inv=continue_learning,
+              continue_learning_tube=continue_learning and somatosensory,
+              verbose=False)
     series = ("planned_loss_steps", "prod_loss_steps",
               "prod_semvec_loss_steps", "pred_model_loss", "inv_model_loss")
+    if somatosensory:
+        series += TUBE_SERIES + TUBE_MODEL_LOSSES
     out = {}
     for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
-        paule = Paule(device=dev, dtype=dtype, seed=7)
+        paule = Paule(device=dev, dtype=dtype, seed=7,
+                      use_somatosensory_feedback=somatosensory)
+        if somatosensory:
+            paule.tube_embedder.dropout = 0.0
         try:
             r = paule.plan_resynth(**kw)
         finally:
@@ -652,9 +815,10 @@ def check_against_cpu(continue_learning):
         out[dev] = {s: np.array(getattr(r, s)) for s in series}
     errs = rel_errs(out, series)
     err = max(errs.values())
-    print(f"short plan (continue_learning={continue_learning}), card f32 vs "
-          f"CPU f64: {sum(len(v) for v in out['cpu'].values())} losses, max "
-          f"rel err {err:.3e} (tol {PLAN_RTOL}); per series " + ", ".join(
+    print(f"short plan (continue_learning={continue_learning}, "
+          f"somatosensory={somatosensory}), card f32 vs CPU f64: "
+          f"{sum(len(v) for v in out['cpu'].values())} losses, max rel err "
+          f"{err:.3e} (tol {PLAN_RTOL}); per series " + ", ".join(
               f"{s} {e:.1e}" for s, e in errs.items()))
     return err <= PLAN_RTOL
 
@@ -726,20 +890,35 @@ def main():
     ok_s24, stack24 = check_stack2(dev, gen, 201, 24)
     # T=201, B=8: the inverse model's training shape (201 mel frames)
     ok_ci8, core_inv8 = check_core(dev, gen, 201, 8)
+    # the somatosensory variant: the cp->tube and tube->mel models at H=360
+    # in planning (B=1), training (B=8) and the produced metrics (B=24,
+    # forward only on the path); the tube embedder's two layers at T=402 as
+    # the fused pair in eval mode (B=1: initial and final values, B=24: the
+    # produced metrics)
+    tube, ok_tube = {}, True
+    for batch in (1, 8, 24):
+        ok_t, tube[batch] = check_core(dev, gen, 402, batch, H_TUBE)
+        ok_tube = ok_tube and ok_t
+    ok_t1, tstack1 = check_stack2(dev, gen, 402, 1)
+    ok_t24, tstack24 = check_stack2(dev, gen, 402, 24)
     ok_edges = check_edges(dev, gen)
     ok_one = check_one_kernel_per_call(dev, gen)
     ok = (ok_c and ok_c8 and ok_s1 and ok_s4 and ok_s24 and ok_ci8
-          and ok_edges and ok_one)
+          and ok_tube and ok_t1 and ok_t24 and ok_edges and ok_one)
     results = {**core, **stack}
     for name in core:
-        merge_errors(name, results, core8, core_inv8)
+        merge_errors(name, results, core8, core_inv8, *tube.values())
     for name in stack:
-        merge_errors(name, results, stack4, stack24)
+        merge_errors(name, results, stack4, stack24, tstack1, tstack24)
     print_times("", results)
     print_times(" T=402 B=8", core8)
     print_times(" T=201 B=8", core_inv8)
     print_times(" B=4", stack4)
     print_times(" B=24", stack24)
+    for batch, res in tube.items():
+        print_times(f" T=402 B={batch} H={H_TUBE}", res)
+    print_times(" T=402 B=1", tstack1)
+    print_times(" T=402 B=24", tstack24)
 
     print("ceiling probes:")
     ok_p, probe, probe_launches = run_probes()
@@ -751,18 +930,25 @@ def main():
     print(f"Paule() on {paule.device}: {time.perf_counter() - t0:.1f} s")
     try:
         ok_plan = drive_planning(paule, target)
-        ok_cl, launches = drive_continue_learning(paule, target, {
-            "pred": core8["lstm_fwd"]["ms"] + core8["lstm_bwd"]["ms"],
-            "inv": core_inv8["lstm_fwd"]["ms"] + core_inv8["lstm_bwd"]["ms"]})
+        ok_cl, launches, main_times = drive_continue_learning(
+            paule, target, {
+                "pred": core8["lstm_fwd"]["ms"] + core8["lstm_bwd"]["ms"],
+                "inv": (core_inv8["lstm_fwd"]["ms"]
+                        + core_inv8["lstm_bwd"]["ms"])})
         print("semvec path:")
         ok_sem = drive_semvec(paule, target)
     finally:
         paule.close()
+    print("somatosensory path:")
+    ok_som, _shapes = drive_somatosensory(target, launches, main_times)
+    print("speech-classifier path:")
+    ok_sc = drive_speech_classifier(target)
     ok_cpu = check_against_cpu(False)
     ok_cpu_cl = check_against_cpu(True)
     ok_cpu_sem = check_semvec_against_cpu()
-    ok = (ok and ok_p and ok_plan and ok_cl and ok_sem and ok_cpu
-          and ok_cpu_cl and ok_cpu_sem)
+    ok_cpu_som = check_against_cpu(True, somatosensory=True)
+    ok = (ok and ok_p and ok_plan and ok_cl and ok_sem and ok_som and ok_sc
+          and ok_cpu and ok_cpu_cl and ok_cpu_sem and ok_cpu_som)
 
     kernels = []
     for k in K.KERNELS:

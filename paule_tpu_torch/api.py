@@ -7,9 +7,12 @@ its audio), initialised from the inverse model (``initialize_from=
 "acoustic"``) or from the cp generator (``"semvec"``), under the
 objectives ``"acoustic"``, ``"semvec"`` and ``"acoustic_semvec"``, with
 ``past_cp`` and continue-learning of the predictive and inverse models;
-weights from the in-repo release, a reference ``pretrained_models/`` tree,
-a seeded random initialisation or injected trees; ``save_state`` and
-``load_state``.
+the speech-classifier variant (``use_speech_classifier``) and the
+somatosensory variant (``use_somatosensory_feedback``: cp->tube, tube->mel
+and a tube embedder beside the acoustic models, tube extraction from the
+synthesizer, ``continue_learning_tube``); weights from the in-repo release,
+a reference ``pretrained_models/`` tree, a seeded random initialisation or
+injected trees; ``save_state`` and ``load_state``.
 
 Options outside the port raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them.  Synthesis, the produced-audio metrics and
@@ -35,28 +38,39 @@ from .dsp.mel import librosa_melspec, melspec_44100
 from .dsp.targets import audio_target_to_mel
 from .models import torch_convert as TC
 from .models.blocks import init_random
+from .models.classifier import LinearClassifier
 from .models.embedder import EmbeddingModel
 from .models.forward import ForwardModel
 from .models.generative import Generator
 from .models.inverse import InverseModelMelTimeSmoothResidual
-from .ops.normalize import inv_normalize_cp, normalize_mel
+from .ops import losses as L
+from .ops.normalize import inv_normalize_cp, normalize_mel, normalize_tube
 from .planning import engine
-from .planning.engine import MEL_WEIGHT, SEMANTIC_WEIGHT
+from .planning.engine import (MEL_WEIGHT, SEMANTIC_WEIGHT,
+                              SPEECH_CLASSIFIER_WEIGHT, TUBE_MEL_WEIGHT,
+                              TUBE_SEMANTIC_WEIGHT)
 from .planning.results import (BestSynthesisAcoustic, BestSynthesisSemantic,
-                               PlanningResults)
+                               BestSynthesisSomatosensory, PlanningResults,
+                               PlanningResultsWithSomatosensory,
+                               PlanningResultsWithSpeechClassifier)
 from .planning.trainer import (ModelTrainer, ReplayBuffer,
                                create_epoch_batches, train_epochs)
 from .release import load_into, load_release
 
 #: model key -> (converter kind, sub-directory of a reference
-#: ``pretrained_models/`` tree), as ``paule_tpu/api.py:362-372`` reads them
-#: for the models the port has
+#: ``pretrained_models/`` tree, a substring the file's name must hold or
+#: ``None``), as ``paule_tpu/api.py:362-387`` reads them: the first ``.pt``
+#: file in name order that passes the filter
 PRETRAINED = {
-    "predictive": ("forward", "predictive"),
-    "inverse": ("inverse", "inverse"),
-    "embedder": ("embedder", "embedder"),
-    "cp_gan": ("generator", "cp_gan"),
-    "mel_gan": ("generator", "mel_gan"),
+    "predictive": ("forward", "predictive", None),
+    "inverse": ("inverse", "inverse", None),
+    "embedder": ("embedder", "embedder", None),
+    "cp_gan": ("generator", "cp_gan", None),
+    "mel_gan": ("generator", "mel_gan", None),
+    "speech_classifier": ("linear_classifier", "speech_classifier", None),
+    "cp_tube": ("forward", "somatosensory", "cp_to_tube"),
+    "tube_mel": ("forward", "somatosensory", "tube_to_mel"),
+    "tube_embedder": ("embedder", "somatosensory", "tube_to_vector"),
 }
 
 
@@ -74,12 +88,38 @@ def _np(t):
     return t.detach().cpu().numpy().astype(np.float64)
 
 
+def _rmse_rows(a, b):
+    """RMSE of each row of ``a`` against ``b`` (broadcast) -> ``(L,)``."""
+    return torch.sqrt(((a - b) ** 2).flatten(1).mean(dim=1))
+
+
+def _tube_features(tube_info):
+    """A synthesizer's ``tube_info`` -> the normalised tube ``(T, 10)``:
+    the 7 oral-cavity areas, incisor position, tongue-tip side elevation
+    and velum opening (``paule_tpu/api.py:595-602``)."""
+    area = synth.get_area_info_within_oral_cavity(
+        tube_info["tube_length_cm"], tube_info["tube_area_cm2"])
+    return normalize_tube(np.concatenate(
+        [area, tube_info["incisor_pos_cm"][:, None],
+         tube_info["tongue_tip_side_elevation"][:, None],
+         tube_info["velum_opening_cm2"][:, None]], axis=1))
+
+
 class Paule:
     """The predictive, inverse and embedder models, the cp and mel
     generators, the predictive and inverse models' continue-learning
     trainers and replay buffer, the synthesizer (the "plant"), and the
     best-synthesis trackers; the keyword surface of
     ``paule_tpu.api.Paule``.
+
+    ``use_speech_classifier`` adds a frozen :class:`LinearClassifier`
+    whose BCE against the "speech" label enters the planning loss.
+    ``use_somatosensory_feedback`` adds the cp->tube and tube->mel models
+    (H=360, with their own continue-learning trainers) and the tube
+    embedder (two layers at H=720, dropout 0.7 while planning, its masks
+    drawn from :attr:`tube_generator` on the device); the synthesizer then
+    also extracts the tube.  The two variants exclude each other
+    (``ValueError``), as in the JAX package.
 
     ``device=None`` means ``"cuda"``, which raises when no CUDA device is
     present; pass ``device="cpu"`` to run on the CPU (the LSTM kernels'
@@ -100,7 +140,9 @@ class Paule:
     ``plant`` is the synthesizer planning drives: an object with
     ``speak(cp (T, 30)) -> (audio, sr)`` and, for one call per outer
     iteration, ``speak_batch(cps (L, T, 30)) -> (audio (L, n), sr, errors
-    (L,))`` (denormalised trajectories); the default is a
+    (L,))`` (denormalised trajectories); under the somatosensory variant
+    ``speak_and_extract_tube_information`` and ``speak_and_extract_batch``
+    in their place, which also return the tube; the default is a
     :class:`~paule_tpu_torch.synth.SynthPool`.  With
     ``synthesis_error="skip"`` a snapshot whose synthesis fails is replaced
     by silence and planning goes on; ``"raise"`` raises.
@@ -131,15 +173,15 @@ class Paule:
                  seed=20200905, dtype=None, synthesis_async=True,
                  synthesis_error="raise", physical_forward=False,
                  speaker="default", plan_overlap=True, plant=None):
-        # the optimizers are made here; the variants' models come with
-        # their variants; planning runs without overlap (class docstring)
+        # the optimizers are made here; planning runs without overlap
+        # (class docstring)
         del pred_optimizer, inv_optimizer, tube_optimizer, tube_mel_optimizer
-        del speech_classifier_optimizer, cp_tube_model, tube_mel_model
-        del tube_embedder, speech_classifier, plan_overlap
-        if use_somatosensory_feedback or use_speech_classifier:
-            raise NotImplementedError(
-                "the somatosensory and speech-classifier variants are not "
-                "ported yet (ROADMAP.md, 'Modules to port', item 10)")
+        del speech_classifier_optimizer, plan_overlap
+        if use_somatosensory_feedback and use_speech_classifier:
+            raise ValueError(
+                "at the moment you have to choose either to use "
+                "`use_somatosenrosry_feedback=True` OR to use "
+                "`use_speech_classifier=True` or none")
         if physical_forward:
             raise NotImplementedError(
                 "physical_forward (the spectral forward model) is not ported "
@@ -160,8 +202,8 @@ class Paule:
             torch.backends.cudnn.allow_tf32 = False
         self.dtype = dtype or torch.float32
         self.smiling = smiling
-        self.use_speech_classifier = False
-        self.use_somatosensory_feedback = False
+        self.use_speech_classifier = use_speech_classifier
+        self.use_somatosensory_feedback = use_somatosensory_feedback
         self.synthesis_async = synthesis_async
         self.synthesis_error = synthesis_error
         #: the port's randomness: the random initialisation and the
@@ -171,6 +213,10 @@ class Paule:
         #: batching and replay sampling draw from this, call for call as
         #: the JAX package draws (``paule_tpu/api.py:150``)
         self._py_rng = random.Random(seed)
+        #: the tube embedder's dropout masks in planning are drawn from
+        #: this, on the device
+        self.tube_generator = torch.Generator(
+            device=self.device).manual_seed(seed)
 
         trees = self._resolve_weights(pretrained_dir)
         self.pred_model = self._model(
@@ -187,12 +233,40 @@ class Paule:
                                         trees.get("cp_gan"))
         self.mel_gen_model = self._model(Generator(output_size=60),
                                          mel_gen_model, trees.get("mel_gan"))
+        self.speech_classifier = None
+        if use_speech_classifier:
+            self.speech_classifier = self._model(
+                LinearClassifier(input_dim=60, output_dim=1),
+                speech_classifier, trees.get("speech_classifier"))
+        self.cp_tube_model = self.tube_mel_model = self.tube_embedder = None
+        if use_somatosensory_feedback:
+            self.cp_tube_model = self._model(
+                ForwardModel(num_lstm_layers=1, hidden_size=360,
+                             output_size=10, input_size=30,
+                             apply_half_sequence=False),
+                cp_tube_model, trees.get("cp_tube"))
+            self.tube_mel_model = self._model(
+                ForwardModel(num_lstm_layers=1, hidden_size=360,
+                             output_size=60, input_size=10,
+                             apply_half_sequence=True),
+                tube_mel_model, trees.get("tube_mel"))
+            self.tube_embedder = self._model(
+                EmbeddingModel(input_size=10, num_lstm_layers=2,
+                               hidden_size=720, dropout=0.7,
+                               post_upsampling_size=0),
+                tube_embedder, trees.get("tube_embedder"))
         # frozen: planning takes no weight gradients; the trainers unfreeze
         # their model only inside a training step
-        for frozen in (self.embedder, self.cp_gen_model, self.mel_gen_model):
-            frozen.requires_grad_(False)
+        for frozen in (self.embedder, self.cp_gen_model, self.mel_gen_model,
+                       self.speech_classifier, self.tube_embedder):
+            if frozen is not None:
+                frozen.requires_grad_(False)
         self.pred_trainer = ModelTrainer(self.pred_model, loss="rmse")
         self.inv_trainer = ModelTrainer(self.inv_model, loss="cp_trajectory")
+        if use_somatosensory_feedback:
+            self.tube_trainer = ModelTrainer(self.cp_tube_model, loss="rmse")
+            self.tube_mel_trainer = ModelTrainer(self.tube_mel_model,
+                                                 loss="rmse")
         self.continue_data = ReplayBuffer(continue_data, rng=self._py_rng)
 
         self.synth_pool = synth.SynthPool(size=min(8, os.cpu_count() or 2),
@@ -200,6 +274,8 @@ class Paule:
         self.plant = plant if plant is not None else self.synth_pool
         self.best_synthesis_acoustic = None
         self.best_synthesis_semantic = None
+        if use_somatosensory_feedback:
+            self.best_synthesis_somatosensory = None
         #: per-phase wall-clock split of the most recent plan_resynth
         self.last_planning_timings = None
 
@@ -223,11 +299,12 @@ class Paule:
             raise FileNotFoundError(
                 f"pretrained_dir {pretrained_dir!r} does not exist")
         found = {}
-        for key, (kind, subdir) in PRETRAINED.items():
+        for key, (kind, subdir, name_filter) in PRETRAINED.items():
             d = os.path.join(pretrained_dir, subdir)
             if not os.path.isdir(d):
                 continue
-            files = sorted(f for f in os.listdir(d) if f.endswith(".pt"))
+            files = sorted(f for f in os.listdir(d) if f.endswith(".pt")
+                           and (name_filter is None or name_filter in f))
             if not files:
                 continue
             path = os.path.join(d, files[0])
@@ -292,73 +369,133 @@ class Paule:
             return gen(noise, int(length), semvec.reshape(1, 300))
 
     def _speak(self, cp_norm):
-        """One normalised trajectory ``(T, 30)`` through ``plant.speak``
-        -> ``(audio, sr)``; a non-finite trajectory or audio raises."""
+        """One normalised trajectory ``(T, 30)`` through the plant ->
+        ``(audio, sr, tube)``: under the somatosensory variant through
+        ``plant.speak_and_extract_tube_information``, ``tube`` the
+        normalised ``(T, 10)`` (else ``None``); a non-finite trajectory,
+        audio or tube raises (``paule_tpu/api.py:582-611``)."""
         cps = inv_normalize_cp(np.asarray(cp_norm, dtype=np.float64))
         if not np.isfinite(cps).all():
             raise ValueError("non-finite cp trajectory (planning diverged?)")
-        sig, sr = self.plant.speak(cps)
+        tube = None
+        if self.use_somatosensory_feedback:
+            sig, sr, tube_info = self.plant.speak_and_extract_tube_information(
+                cps)
+            tube = _tube_features(tube_info)
+        else:
+            sig, sr = self.plant.speak(cps)
         if not np.isfinite(sig).all():
             raise ValueError("synthesizer produced non-finite audio")
-        return np.asarray(sig, dtype=np.float64), sr
+        if tube is not None and not np.isfinite(tube).all():
+            raise ValueError("synthesizer produced non-finite tube data")
+        return np.asarray(sig, dtype=np.float64), sr, tube
 
-    @staticmethod
-    def _silence(i, why, n_samples):
-        """The stand-in for snapshot ``i``, whose synthesis failed, under
-        ``synthesis_error="skip"``."""
+    def _silence(self, i, why, n_frames):
+        """The stand-in for snapshot ``i`` of ``n_frames`` cp frames, whose
+        synthesis failed, under ``synthesis_error="skip"``: silence, and a
+        zero tube under the somatosensory variant."""
         print(f"WARNING: synthesis of snapshot {i} failed ({why}); "
               "substituting silence")
-        return np.zeros(n_samples)
+        tube = (np.zeros((n_frames, 10)) if self.use_somatosensory_feedback
+                else None)
+        return np.zeros(max(0, n_frames - 1) * synth.FRAME_STEPS), tube
+
+    @property
+    def _plant_has_batch(self):
+        """Whether the plant has the batch entry point the variant calls
+        (``paule_tpu/api.py:570-580``)."""
+        return hasattr(self.plant, "speak_and_extract_batch"
+                       if self.use_somatosensory_feedback else "speak_batch")
 
     def _synthesize(self, snapshots):
-        """Normalised cp ``(L, T, 30)`` -> audio ``(L, n)``, sr: one
-        ``plant.speak_batch`` call when the plant has it, else
-        ``plant.speak`` per trajectory; a failed snapshot raises, or
-        becomes silence (``paule_tpu/api.py:582-656``, ``:1153-1194``)."""
+        """Normalised cp ``(L, T, 30)`` -> audio ``(L, n)``, sr, and the
+        normalised tubes ``(L, T, 10)`` under the somatosensory variant
+        (else ``None``): one batch call when the plant has it, else one
+        call per trajectory; a failed snapshot raises, or becomes silence
+        (``paule_tpu/api.py:582-656``, ``:1153-1194``)."""
         snapshots = np.asarray(snapshots, dtype=np.float64)
-        sigs = []
-        if self.synthesis_async and hasattr(self.plant, "speak_batch"):
-            audio, sr, errors = self.plant.speak_batch(
-                inv_normalize_cp(snapshots))
+        n_frames = snapshots.shape[1]
+        somato = self.use_somatosensory_feedback
+        sigs, tubes = [], []
+        if self.synthesis_async and self._plant_has_batch:
+            cps = inv_normalize_cp(snapshots)
+            if somato:
+                audio, sr, errors, infos = self.plant.speak_and_extract_batch(
+                    cps)
+            else:
+                audio, sr, errors = self.plant.speak_batch(cps)
             for i, sig in enumerate(audio):
-                if errors[i] == 0 and np.isfinite(sig).all():
-                    sigs.append(sig)
-                    continue
-                why = f"error code {int(errors[i])}"
-                if self.synthesis_error == "raise":
-                    raise ValueError(
-                        f"synthesis of snapshot {i} failed ({why}; -1 = "
-                        "non-finite trajectory, planning diverged?)")
-                sigs.append(self._silence(i, why, audio.shape[1]))
-            return np.stack(sigs), sr
-        for i, snapshot in enumerate(snapshots):
-            try:
-                sig, sr = self._speak(snapshot)
-            except Exception as exc:  # noqa: BLE001  (the policy decides)
-                if self.synthesis_error == "raise":
-                    raise
-                sig = self._silence(i, exc, max(0, snapshot.shape[0] - 1)
-                                    * synth.FRAME_STEPS)
-                sr = synth.SAMPLE_RATE
-            sigs.append(sig)
-        return np.stack(sigs), sr
+                tube = None
+                bad = errors[i] != 0 or not np.isfinite(sig).all()
+                if not bad and somato:
+                    tube = _tube_features(infos[i])
+                    bad = not np.isfinite(tube).all()
+                if bad:
+                    why = f"error code {int(errors[i])}"
+                    if self.synthesis_error == "raise":
+                        raise ValueError(
+                            f"synthesis of snapshot {i} failed ({why}; -1 = "
+                            "non-finite trajectory, planning diverged?)")
+                    sig, tube = self._silence(i, why, n_frames)
+                sigs.append(sig)
+                tubes.append(tube)
+        else:
+            for i, snapshot in enumerate(snapshots):
+                try:
+                    sig, sr, tube = self._speak(snapshot)
+                except Exception as exc:  # noqa: BLE001  (the policy decides)
+                    if self.synthesis_error == "raise":
+                        raise
+                    sig, tube = self._silence(i, exc, n_frames)
+                    sr = synth.SAMPLE_RATE
+                sigs.append(sig)
+                tubes.append(tube)
+        return np.stack(sigs), sr, np.stack(tubes) if somato else None
 
-    def _prod_metrics(self, sigs, target_mel, target_semvec, want_semvec):
-        """Produced-audio metrics of all logged snapshots in one batch:
-        mels, mel losses and, with ``want_semvec``, semvecs and their
-        losses.  -> (those as float64 numpy, the produced mels on the
-        device, which continue-learning trains on)."""
+    def _prod_metrics(self, sigs, snapshots, prod_tubes, target_mel,
+                      target_semvec, want_semvec):
+        """Produced-audio metrics of all logged snapshots in one batch, the
+        models in eval mode (``paule_tpu/api.py:453-512``): mels, mel
+        losses and, with ``want_semvec``, semvecs and their losses; the
+        classifier's loss; under the somatosensory variant the cp->tube
+        model's tubes of the ``snapshots`` (on the device) and their loss
+        against the produced ``prod_tubes``, both tubes' tube->mel mels,
+        the produced one's mel loss and, with ``want_semvec``, the tube
+        embedder's semvec of the produced tubes and its loss.  -> (those
+        as float64 numpy, {"prod_mel", "prod_tube"} on the device, which
+        continue-learning trains on)."""
         with torch.no_grad():
             prod_mel = normalize_mel(melspec_44100(self._tensor(sigs)))
             out = {"prod_mel": prod_mel,
-                   "prod_loss": MEL_WEIGHT * torch.sqrt(
-                       ((prod_mel - target_mel) ** 2).mean(dim=(1, 2)))}
+                   "prod_loss": MEL_WEIGHT * _rmse_rows(prod_mel,
+                                                        target_mel)}
+            dev = {"prod_mel": prod_mel, "prod_tube": None}
             if want_semvec:
                 prod_semvec = self.embedder(prod_mel)
                 out["prod_semvec"] = prod_semvec
-                out["prod_semvec_loss"] = SEMANTIC_WEIGHT * torch.sqrt(
-                    ((prod_semvec - target_semvec) ** 2).mean(dim=1))
-        return {k: _np(v) for k, v in out.items()}, prod_mel
+                out["prod_semvec_loss"] = SEMANTIC_WEIGHT * _rmse_rows(
+                    prod_semvec, target_semvec)
+            if self.use_speech_classifier:
+                logits = self.speech_classifier(prod_mel)[:, None]
+                out["prod_sc_loss"] = SPEECH_CLASSIFIER_WEIGHT * (
+                    L.bce_with_logits(logits, torch.zeros_like(logits),
+                                      dim=1))
+            if self.use_somatosensory_feedback:
+                tubes = dev["prod_tube"] = self._tensor(prod_tubes)
+                pred_tube = self.cp_tube_model(snapshots)
+                out["pred_tube"] = pred_tube
+                out["prod_tube_mel"] = self.tube_mel_model(tubes)
+                out["pred_tube_mel"] = self.tube_mel_model(pred_tube)
+                out["prod_tube_loss"] = _rmse_rows(pred_tube, tubes)
+                out["prod_tube_mel_loss"] = TUBE_MEL_WEIGHT * _rmse_rows(
+                    out["prod_tube_mel"], target_mel)
+                if want_semvec:
+                    semvec = self.tube_embedder(tubes)
+                    out["prod_tube_semvec"] = semvec
+                    out["prod_tube_semvec_loss"] = (
+                        TUBE_SEMANTIC_WEIGHT * _rmse_rows(semvec,
+                                                          target_semvec))
+        return {k: _np(v) for k, v in out.items()}, dev
 
     def create_epoch_batches(self, df_length, batch_size, shuffle=True,
                              same_size_batching=False,
@@ -405,9 +542,17 @@ class Paule:
         drawn from its logged snapshots and their produced mels, mixed
         half and half with replay rows when ``add_training_data_pred``
         (``add_training_data_inv``) is set and the replay buffer holds
-        any."""
+        any.  With ``continue_learning_tube`` under the somatosensory
+        variant, the cp->tube model is trained on (cp, produced tube) and
+        the tube->mel model on (produced tube, produced mel) of the
+        predictive model's rows.
+
+        Returns :class:`PlanningResults`, or under a variant
+        :class:`PlanningResultsWithSpeechClassifier` /
+        :class:`PlanningResultsWithSomatosensory`."""
         if seed:
             self.generator.manual_seed(seed)
+            self.tube_generator.manual_seed(seed)
             self._py_rng.seed(seed)
         if target_acoustic is None and target_semvec is None:
             raise ValueError(
@@ -415,10 +560,6 @@ class Paule:
         if objective not in engine.OBJECTIVES:
             raise ValueError("objective has to be one of 'acoustic_semvec', "
                              "'acoustic' or 'semvec'")
-        if continue_learning_tube:
-            raise NotImplementedError(
-                "continue_learning_tube (the somatosensory models) is not "
-                "ported yet (ROADMAP.md, 'Modules to port', item 10)")
         if plot:
             raise NotImplementedError(
                 "plot (paule_tpu/visualize.py) is not ported yet (ROADMAP.md,"
@@ -436,6 +577,8 @@ class Paule:
             raise ValueError("past_cp have to be None or the sequence length "
                              "has to be an even number")
         want_semvec = objective != "acoustic" or log_semantics
+        somato = self.use_somatosensory_feedback
+        use_sc = self.use_speech_classifier
 
         # ---------------- target ----------------
         target_sig = target_sr = None
@@ -500,7 +643,10 @@ class Paule:
             initial_cp = np.concatenate(
                 (np.asarray(past_cp, dtype=np.float64), initial_cp), axis=0)
         xx = self._tensor(initial_cp[None]).requires_grad_(True)
-        models = engine.Models(self.pred_model, self.embedder)
+        models = engine.Models(self.pred_model, self.embedder,
+                               self.speech_classifier, self.cp_tube_model,
+                               self.tube_mel_model, self.tube_embedder,
+                               self.tube_generator)
         constraints = engine.Constraints(clamp=1.05, smiling=self.smiling,
                                          past_len=past_len)
 
@@ -509,7 +655,24 @@ class Paule:
             initial_pred_mel_dev = self.pred_model(xx)
             initial_pred_semvec = _np(self._embed(initial_pred_mel_dev))[0]
         initial_pred_mel = _np(initial_pred_mel_dev)[0]
-        initial_sig, initial_sr = self._speak(initial_cp)
+        initial_sig, initial_sr, initial_prod_tube = self._speak(initial_cp)
+        if somato:
+            # the tube models on the initial trajectory and on its produced
+            # tube (paule_tpu/api.py:851-866)
+            with torch.no_grad():
+                pred_tube = self.cp_tube_model(xx)
+                prod_tube = self._tensor(initial_prod_tube[None])
+                somato_init = {
+                    "initial_prod_tube": initial_prod_tube,
+                    "initial_pred_tube": pred_tube,
+                    "initial_prod_tube_mel": self.tube_mel_model(prod_tube),
+                    "initial_pred_tube_mel": self.tube_mel_model(pred_tube),
+                    "initial_prod_tube_semvec": self.tube_embedder(
+                        prod_tube),
+                    "initial_pred_tube_semvec": self.tube_embedder(
+                        pred_tube)}
+            somato_init = {k: v if k == "initial_prod_tube" else _np(v)[0]
+                           for k, v in somato_init.items()}
         initial_prod_mel = normalize_mel(librosa_melspec(
             initial_sig, initial_sr, device=self.device, dtype=self.dtype))
         if past_len:
@@ -526,16 +689,35 @@ class Paule:
         self.best_synthesis_semantic = BestSynthesisSemantic(
             np.inf, initial_cp, initial_sig, initial_prod_semvec,
             initial_pred_semvec)
+        if somato:
+            self.best_synthesis_somatosensory = BestSynthesisSomatosensory(
+                np.inf, np.inf, np.inf, initial_cp, initial_sig,
+                *somato_init.values())
 
+        # the series of paule_tpu/api.py:819-836
         logs = {k: [] for k in (
             "prod_loss_steps", "planned_loss_steps", "planned_mel_loss_steps",
             "vel_loss_steps", "jerk_loss_steps", "pred_semvec_loss_steps",
             "prod_semvec_loss_steps", "cp_steps", "pred_semvec_steps",
             "prod_semvec_steps", "grad_steps", "sig_steps", "prod_mel_steps",
             "pred_mel_steps", "pred_model_loss", "inv_model_loss")}
+        if use_sc:
+            logs["pred_speech_classifier_loss_steps"] = []
+            logs["prod_speech_classifier_loss_steps"] = []
+        if somato:
+            for k in ("prod_tube_loss_steps", "pred_tube_mel_loss_steps",
+                      "prod_tube_mel_loss_steps",
+                      "pred_tube_semvec_loss_steps",
+                      "prod_tube_semvec_loss_steps", "pred_tube_steps",
+                      "prod_tube_steps", "prod_tube_mel_steps",
+                      "pred_tube_mel_steps", "pred_tube_semvec_steps",
+                      "prod_tube_semvec_steps", "tube_model_loss",
+                      "tube_mel_model_loss"):
+                logs[k] = []
         optimizer = engine.make_optimizer(xx, learning_rate_planning)
         n_segments = n_inner // log_ii
         sig, sr, prod_mel = initial_sig, initial_sr, initial_prod_mel
+        prod_tube = initial_prod_tube
         timings = {"planning": 0.0, "synthesis": 0.0, "metrics": 0.0,
                    "continue_learning": 0.0}
         start = time.perf_counter()
@@ -563,6 +745,14 @@ class Paule:
                     if want_semvec:
                         logs["pred_semvec_loss_steps"].append(
                             float(subs.semvec_loss[s]))
+                    if use_sc:
+                        logs["pred_speech_classifier_loss_steps"].append(
+                            float(subs.speech_classifier_loss[s]))
+                    if somato:
+                        logs["pred_tube_mel_loss_steps"].append(
+                            float(subs.tube_mel_loss[s]))
+                        logs["pred_tube_semvec_loss_steps"].append(
+                            float(subs.tube_semvec_loss[s]))
                     if log_gradients:
                         logs["grad_steps"].append(grads[s])
                     if verbose:
@@ -579,52 +769,32 @@ class Paule:
                               float(subs.local_linear_loss[s]))
 
             with _phase(timings, "synthesis"):
-                sigs, sr = self._synthesize(snapshots)
+                sigs, sr, prod_tubes = self._synthesize(snapshots)
                 sig = sigs[-1]
+                if somato:
+                    prod_tube = prod_tubes[-1]
                 if log_signals:
                     logs["sig_steps"].extend(list(sigs))
 
             with _phase(timings, "metrics"):
-                pm, prod_mels_dev = self._prod_metrics(
-                    sigs, target_mel_dev, target_semvec_dev, want_semvec)
+                pm, prod_dev = self._prod_metrics(
+                    sigs, seg["xx_pre"][:, 0], prod_tubes, target_mel_dev,
+                    target_semvec_dev, want_semvec)
                 prod_mel = pm["prod_mel"][-1]
-                prod_semvecs = []
-                for s in range(n_segments):
-                    prod_loss = float(pm["prod_loss"][s])
-                    logs["prod_loss_steps"].append(prod_loss)
-                    if verbose:
-                        print("Produced Mel Loss: ", prod_loss)
-                    new_ac = BestSynthesisAcoustic(
-                        prod_loss, snapshots[s], sigs[s], pm["prod_mel"][s],
-                        pred_mels[s])
-                    if self.best_synthesis_acoustic.mel_loss > new_ac.mel_loss:
-                        self.best_synthesis_acoustic = new_ac
-                    if want_semvec:
-                        prod_semvec_loss = float(pm["prod_semvec_loss"][s])
-                        logs["prod_semvec_loss_steps"].append(prod_semvec_loss)
-                        prod_semvecs.append(pm["prod_semvec"][s])
-                        if verbose:
-                            print("Produced Semvec Loss: ", prod_semvec_loss)
-                        new_sem = BestSynthesisSemantic(
-                            prod_semvec_loss, snapshots[s], sigs[s],
-                            pm["prod_semvec"][s], pred_semvecs[s])
-                        if (self.best_synthesis_semantic.semvec_loss
-                                > new_sem.semvec_loss):
-                            self.best_synthesis_semantic = new_sem
-                logs["prod_mel_steps"].append(list(pm["prod_mel"]))
-                logs["pred_mel_steps"].append(list(pred_mels))
-                logs["pred_semvec_steps"].append(
-                    list(pred_semvecs) if want_semvec else [])
-                logs["prod_semvec_steps"].append(prod_semvecs)
+                self._log_produced(logs, pm, snapshots, sigs, prod_tubes,
+                                   pred_mels, pred_semvecs, want_semvec,
+                                   verbose)
                 if log_cps:
                     logs["cp_steps"].append(list(snapshots))
 
             if continue_learning and n_segments:
                 with _phase(timings, "continue_learning"):
                     self._continue_learning(
-                        seg["xx_pre"][:, 0], prod_mels_dev,
-                        target_semvec_dev[0], logs,
+                        seg["xx_pre"][:, 0], prod_dev["prod_mel"],
+                        prod_dev["prod_tube"], target_semvec_dev[0], logs,
                         continue_learning_inv=continue_learning_inv,
+                        continue_learning_tube=(continue_learning_tube
+                                                and somato),
                         add_training_data_pred=add_training_data_pred,
                         add_training_data_inv=add_training_data_inv,
                         n_batches=n_batches, batch_size=batch_size,
@@ -635,24 +805,140 @@ class Paule:
             pred_mel_dev = self.pred_model(xx)
             pred_semvec = _np(self._embed(pred_mel_dev))[0]
             prod_semvec = _np(self._embed(self._tensor(prod_mel[None])))[0]
+            if somato:
+                # the tube models on the plan and on the last produced tube
+                # (paule_tpu/api.py:1415-1449)
+                pred_tube = self.cp_tube_model(xx)
+                prod_tube_dev = self._tensor(prod_tube[None])
+                somato_final = {
+                    "prod_tube": prod_tube,
+                    "pred_tube": _np(pred_tube)[0],
+                    "prod_tube_mel": _np(self.tube_mel_model(
+                        prod_tube_dev))[0],
+                    "pred_tube_mel": _np(self.tube_mel_model(pred_tube))[0],
+                    "prod_tube_semvec": _np(self.tube_embedder(
+                        prod_tube_dev))[0],
+                    "pred_tube_semvec": _np(self.tube_embedder(
+                        pred_tube))[0]}
         timings["total"] = time.perf_counter() - start
         self.last_planning_timings = timings
         if verbose:
             print("phase timings (s):",
                   {k: round(v, 3) for k, v in timings.items()})
-        return PlanningResults(
-            _np(xx)[0], initial_cp, initial_sig, initial_sr,
-            initial_prod_mel, initial_pred_mel, target_sig, target_sr,
-            target_mel[0], sig, sr, prod_mel, _np(pred_mel_dev)[0],
-            initial_prod_semvec, initial_pred_semvec, prod_semvec,
-            pred_semvec, logs["prod_loss_steps"], logs["planned_loss_steps"],
-            logs["planned_mel_loss_steps"], logs["vel_loss_steps"],
-            logs["jerk_loss_steps"], logs["pred_semvec_loss_steps"],
-            logs["prod_semvec_loss_steps"], logs["cp_steps"],
-            logs["pred_semvec_steps"], logs["prod_semvec_steps"],
-            logs["grad_steps"], logs["sig_steps"], logs["prod_mel_steps"],
-            logs["pred_mel_steps"], logs["pred_model_loss"],
-            logs["inv_model_loss"])
+        head = (_np(xx)[0], initial_cp, initial_sig, initial_sr,
+                initial_prod_mel, initial_pred_mel)
+        target = (target_sig, target_sr, target_mel[0])
+        prod_pred = (sig, sr, prod_mel, _np(pred_mel_dev)[0])
+        semvecs = (initial_prod_semvec, initial_pred_semvec, prod_semvec,
+                   pred_semvec)
+        planned = [logs[k] for k in (
+            "prod_loss_steps", "planned_loss_steps", "planned_mel_loss_steps",
+            "vel_loss_steps", "jerk_loss_steps", "pred_semvec_loss_steps",
+            "prod_semvec_loss_steps")]
+        steps = [logs[k] for k in (
+            "cp_steps", "pred_semvec_steps", "prod_semvec_steps",
+            "grad_steps", "sig_steps", "prod_mel_steps", "pred_mel_steps")]
+        model_losses = [logs["pred_model_loss"], logs["inv_model_loss"]]
+        if use_sc:
+            return PlanningResultsWithSpeechClassifier(
+                *head, *target, *prod_pred, *semvecs, *planned,
+                logs["pred_speech_classifier_loss_steps"],
+                logs["prod_speech_classifier_loss_steps"], *steps,
+                *model_losses)
+        if somato:
+            final = [somato_final[k] for k in (
+                "prod_tube", "pred_tube", "prod_tube_mel", "pred_tube_mel")]
+            tube_semvecs = [somato_init["initial_prod_tube_semvec"],
+                            somato_init["initial_pred_tube_semvec"],
+                            prod_semvec, pred_semvec,
+                            somato_final["prod_tube_semvec"],
+                            somato_final["pred_tube_semvec"]]
+            return PlanningResultsWithSomatosensory(
+                *head, *(somato_init[k] for k in (
+                    "initial_prod_tube", "initial_pred_tube",
+                    "initial_prod_tube_mel", "initial_pred_tube_mel")),
+                *target, *prod_pred, *final, initial_prod_semvec,
+                initial_pred_semvec, *tube_semvecs, *planned,
+                *(logs[k] for k in (
+                    "prod_tube_loss_steps", "pred_tube_mel_loss_steps",
+                    "prod_tube_mel_loss_steps", "pred_tube_semvec_loss_steps",
+                    "prod_tube_semvec_loss_steps")),
+                *steps,
+                *(logs[k] for k in (
+                    "prod_tube_steps", "pred_tube_steps",
+                    "prod_tube_mel_steps", "pred_tube_mel_steps",
+                    "prod_tube_semvec_steps", "pred_tube_semvec_steps")),
+                *model_losses, logs["tube_model_loss"],
+                logs["tube_mel_model_loss"])
+        return PlanningResults(*head, *target, *prod_pred, *semvecs,
+                               *planned, *steps, *model_losses)
+
+    def _log_produced(self, logs, pm, snapshots, sigs, prod_tubes, pred_mels,
+                      pred_semvecs, want_semvec, verbose):
+        """Log one outer iteration's produced-audio metrics ``pm`` (of
+        :meth:`_prod_metrics`) and update the best syntheses
+        (``paule_tpu/api.py:1221-1362``)."""
+        somato = self.use_somatosensory_feedback
+        prod_semvecs, prod_tube_semvecs = [], []
+        for s in range(len(snapshots)):
+            prod_loss = float(pm["prod_loss"][s])
+            logs["prod_loss_steps"].append(prod_loss)
+            if self.use_speech_classifier:
+                sc_loss = float(pm["prod_sc_loss"][s])
+                logs["prod_speech_classifier_loss_steps"].append(sc_loss)
+                if verbose:
+                    print("Produced Speech Classifier Loss: ", sc_loss)
+            if somato:
+                tube_loss = float(pm["prod_tube_loss"][s])
+                tube_mel_loss = float(pm["prod_tube_mel_loss"][s])
+                logs["prod_tube_loss_steps"].append(tube_loss)
+                logs["prod_tube_mel_loss_steps"].append(tube_mel_loss)
+            if verbose:
+                print("Produced Mel Loss: ", prod_loss)
+            new_ac = BestSynthesisAcoustic(
+                prod_loss, snapshots[s], sigs[s], pm["prod_mel"][s],
+                pred_mels[s])
+            if self.best_synthesis_acoustic.mel_loss > new_ac.mel_loss:
+                self.best_synthesis_acoustic = new_ac
+            tube_semvec, tube_semvec_loss = None, np.inf
+            if want_semvec:
+                prod_semvec_loss = float(pm["prod_semvec_loss"][s])
+                logs["prod_semvec_loss_steps"].append(prod_semvec_loss)
+                prod_semvecs.append(pm["prod_semvec"][s])
+                if verbose:
+                    print("Produced Semvec Loss: ", prod_semvec_loss)
+                new_sem = BestSynthesisSemantic(
+                    prod_semvec_loss, snapshots[s], sigs[s],
+                    pm["prod_semvec"][s], pred_semvecs[s])
+                if (self.best_synthesis_semantic.semvec_loss
+                        > new_sem.semvec_loss):
+                    self.best_synthesis_semantic = new_sem
+                if somato:
+                    tube_semvec = pm["prod_tube_semvec"][s]
+                    tube_semvec_loss = float(pm["prod_tube_semvec_loss"][s])
+                    prod_tube_semvecs.append(tube_semvec)
+                    logs["prod_tube_semvec_loss_steps"].append(
+                        tube_semvec_loss)
+            if somato:
+                new_som = BestSynthesisSomatosensory(
+                    tube_loss, tube_mel_loss, tube_semvec_loss, snapshots[s],
+                    sigs[s], prod_tubes[s], pm["pred_tube"][s],
+                    pm["prod_tube_mel"][s], pm["pred_tube_mel"][s],
+                    tube_semvec, None)
+                if self.best_synthesis_somatosensory.tube_loss > tube_loss:
+                    self.best_synthesis_somatosensory = new_som
+        logs["prod_mel_steps"].append(list(pm["prod_mel"]))
+        logs["pred_mel_steps"].append(list(pred_mels))
+        logs["pred_semvec_steps"].append(
+            list(pred_semvecs) if want_semvec else [])
+        logs["prod_semvec_steps"].append(prod_semvecs)
+        if somato:
+            logs["prod_tube_steps"].append(list(prod_tubes))
+            for k in ("pred_tube", "prod_tube_mel", "pred_tube_mel"):
+                logs[f"{k}_steps"].append(list(pm[k]))
+            # as in the JAX package, the planned tube semvecs are not kept
+            logs["pred_tube_semvec_steps"].append([])
+            logs["prod_tube_semvec_steps"].append(prod_tube_semvecs)
 
     # ------------------------------------------------------------------
     # continue-learning
@@ -662,16 +948,24 @@ class Paule:
         return [r.to(self.device, self.dtype) if torch.is_tensor(r)
                 else self._tensor(r) for r in rows]
 
-    def _continue_learning(self, snapshots, prod_mels, target_semvec, logs,
-                           *, continue_learning_inv, add_training_data_pred,
+    def _continue_learning(self, snapshots, prod_mels, prod_tubes,
+                           target_semvec, logs, *, continue_learning_inv,
+                           continue_learning_tube, add_training_data_pred,
                            add_training_data_inv, n_batches, batch_size,
                            n_epochs, verbose):
         """Train on this outer iteration's pre-update snapshots
-        ``(L, T, 30)`` and the mels of the audio produced from them, both on
+        ``(L, T, 30)``, the mels of the audio produced from them and, under
+        the somatosensory variant, the produced tubes ``(L, T, 10)``, all on
         the device, then offer them to the replay buffer (counterpart of
         ``paule_tpu/api.py:1523-1693``, drawing from ``self._py_rng`` in
         the same order)."""
         n_prod = snapshots.shape[0]
+        # the columns trained on; replay rows' tubes are read only for the
+        # tube models, as in the JAX package
+        produced = {"cp_norm": snapshots,
+                    "melspec_norm_synthesized": prod_mels}
+        if continue_learning_tube:
+            produced["tube_norm"] = prod_tubes
 
         def scarce(header, k_total):
             if verbose:
@@ -685,8 +979,8 @@ class Paule:
                 print(" ")
 
         def sample_training(add_training_data):
-            """-> (cp rows, mel rows): this iteration's rows, or half replay
-            rows followed by half of them."""
+            """-> {replay column: rows}: this iteration's rows, or half
+            replay rows followed by half of them."""
             if add_training_data and len(self.continue_data) > 0:
                 want = int(0.5 * batch_size) * n_batches
                 if n_prod < want:
@@ -698,10 +992,9 @@ class Paule:
                     k = min(want, len(self.continue_data))
                 prod_idx = self._py_rng.sample(range(n_prod), k)
                 old = self.continue_data.sample(k)
-                return (self._rows_on_device(old["cp_norm"])
-                        + [snapshots[i] for i in prod_idx],
-                        self._rows_on_device(old["melspec_norm_synthesized"])
-                        + [prod_mels[i] for i in prod_idx])
+                return {c: self._rows_on_device(old[c])
+                        + [rows[i] for i in prod_idx]
+                        for c, rows in produced.items()}
             want = batch_size * n_batches
             k = min(want, n_prod)
             if k < want:
@@ -709,18 +1002,29 @@ class Paule:
                        f"fill {n_batches} batches...", k)
             idx = torch.as_tensor(self._py_rng.sample(range(n_prod), k),
                                   device=snapshots.device)
-            return snapshots[idx], prod_mels[idx]
+            return {c: rows[idx] for c, rows in produced.items()}
 
         train = dict(batch_size=batch_size, n_epochs=n_epochs,
                      rng=self._py_rng)
-        cps, mels = sample_training(add_training_data_pred)
+        rows = sample_training(add_training_data_pred)
+        cps, mels = rows["cp_norm"], rows["melspec_norm_synthesized"]
         logs["pred_model_loss"].extend(
             train_epochs(self.pred_trainer, cps, mels, **train))
+        if continue_learning_tube:
+            # the same rows (paule_tpu/api.py:1664-1669)
+            tubes = rows["tube_norm"]
+            logs["tube_model_loss"].extend(
+                train_epochs(self.tube_trainer, cps, tubes, **train))
+            logs["tube_mel_model_loss"].extend(
+                train_epochs(self.tube_mel_trainer, tubes, mels, **train))
         if continue_learning_inv:
-            cps, mels = sample_training(add_training_data_inv)
-            logs["inv_model_loss"].extend(
-                train_epochs(self.inv_trainer, mels, cps, **train))
+            rows = sample_training(add_training_data_inv)
+            logs["inv_model_loss"].extend(train_epochs(
+                self.inv_trainer, rows["melspec_norm_synthesized"],
+                rows["cp_norm"], **train))
         self.continue_data.append({
             "vector": [target_semvec] * n_prod, "cp_norm": list(snapshots),
             "melspec_norm_synthesized": list(prod_mels),
-            "tube_norm": [None] * n_prod, "segment_data": [False] * n_prod})
+            "tube_norm": ([None] * n_prod if prod_tubes is None
+                          else list(prod_tubes)),
+            "segment_data": [False] * n_prod})

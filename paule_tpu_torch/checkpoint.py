@@ -3,11 +3,16 @@
 
 One file holds what ``paule_tpu.checkpoint.paule_state`` holds: the
 predictive and inverse models' parameters with their Adam states, the
-embedder's and both generators' parameters, the ``smiling``,
+embedder's and both generators' parameters, the speech classifier's
+parameters, the cp->tube and tube->mel models' parameters with their Adam
+states and the tube embedder's parameters when the instance has them
+(``paule_tpu/checkpoint.py:71-83``), the ``smiling``,
 ``use_speech_classifier`` and ``use_somatosensory_feedback`` flags, the
-state of the instance's random generator (in place of the JAX key) and the
-replay buffer.  As there, the flags are recorded, not restored: they are
-the constructor's choice.
+states of the instance's random generators (in place of the JAX key; the
+tube embedder's dropout generator is restored only on a device of the kind
+it was saved from) and the replay buffer.  As there, the flags are
+recorded, not restored: they are the constructor's choice, and a variant's
+state is restored only into an instance that has the variant.
 
 The format is the port's own: plain dicts, lists, tensors and numbers,
 written with ``torch.save`` and read back with ``torch.load(...,
@@ -48,10 +53,20 @@ def _cpu(tree):
     return tree
 
 
+def _somato_parts(paule):
+    """The somatosensory variant's modules and optimizers, keyed as
+    ``paule_tpu/checkpoint.py:76-81`` keys their state."""
+    return {"cp_tube_params": paule.cp_tube_model,
+            "cp_tube_opt_state": paule.tube_trainer.optimizer,
+            "tube_mel_params": paule.tube_mel_model,
+            "tube_mel_opt_state": paule.tube_mel_trainer.optimizer,
+            "tube_embedder_params": paule.tube_embedder}
+
+
 def paule_state(paule):
     """The resumable state of ``paule`` as a dict of plain values."""
     data = paule.continue_data.data
-    return {
+    state = {
         "format": FORMAT, "version": FORMAT_VERSION,
         "pred_params": _cpu(paule.pred_model.state_dict()),
         "pred_opt_state": _cpu(paule.pred_trainer.optimizer.state_dict()),
@@ -64,11 +79,21 @@ def paule_state(paule):
         "use_somatosensory_feedback": paule.use_somatosensory_feedback,
         "smiling": paule.smiling,
         "generator_state": paule.generator.get_state(),
+        # a card's generator state does not fit the CPU's, and back
+        "tube_generator_device": paule.tube_generator.device.type,
+        "tube_generator_state": paule.tube_generator.get_state().cpu(),
         # as in the JAX package, an empty buffer is stored as None
         "continue_data": ({c: [_plain(v) for v in rows]
                            for c, rows in data.items()}
                           if len(paule.continue_data) > 0 else None),
     }
+    if paule.use_speech_classifier:
+        state["speech_classifier_params"] = _cpu(
+            paule.speech_classifier.state_dict())
+    if paule.use_somatosensory_feedback:
+        state.update({k: _cpu(v.state_dict())
+                      for k, v in _somato_parts(paule).items()})
+    return state
 
 
 def save(path, state):
@@ -99,5 +124,13 @@ def restore_paule_state(paule, state):
     paule.cp_gen_model.load_state_dict(state["cp_gen_params"])
     paule.mel_gen_model.load_state_dict(state["mel_gen_params"])
     paule.generator.set_state(state["generator_state"])
+    if state.get("tube_generator_device") == paule.tube_generator.device.type:
+        paule.tube_generator.set_state(state["tube_generator_state"])
+    if paule.use_speech_classifier and "speech_classifier_params" in state:
+        paule.speech_classifier.load_state_dict(
+            state["speech_classifier_params"])
+    if paule.use_somatosensory_feedback and "cp_tube_params" in state:
+        for k, v in _somato_parts(paule).items():
+            v.load_state_dict(state[k])
     paule.continue_data.data = state["continue_data"]
     return paule

@@ -22,13 +22,14 @@ class EmbeddingModel(nn.Module):
         else:
             self.linear_mapping = B.Linear(hidden_size, output_size)
 
-    def forward(self, x, lens=None, *, generator=None):
+    def forward(self, x, lens=None, *, generator=None, keep_masks=None):
         """``lens=None`` takes the last step of every row; inter-layer
-        dropout is active in ``train()`` mode and draws from
-        ``generator``."""
+        dropout is active in ``train()`` mode and draws from ``generator``
+        (on ``x``'s device), or takes ``keep_masks``
+        (:func:`paule_tpu_torch.ops.lstm.lstm`)."""
         out, _state = LS.lstm([layer.params() for layer in self.lstm], x,
                               dropout=self.dropout, training=self.training,
-                              generator=generator)
+                              generator=generator, keep_masks=keep_masks)
         out = B.gather_last_step(out, lens)
         if self.post_linear is not None:
             out = B.leaky_relu(self.post_linear(out))

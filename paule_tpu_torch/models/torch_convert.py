@@ -1,7 +1,7 @@
 """Reference (torch) checkpoints -> parameter trees in the JAX package's
 layout, which :func:`paule_tpu_torch.release.load_into` takes (the port's
 own copy of ``paule_tpu/models/torch_convert.py:24-157``, for the kinds the
-port has: forward, inverse, embedder, generator).
+port has: forward, inverse, embedder, generator, linear classifier).
 
 * linear:  torch ``weight (out, in)``      -> ``w (in, out)``
 * conv1d:  torch ``weight (out, in/g, k)`` -> ``w (k, in/g, out)``
@@ -103,12 +103,17 @@ def convert_generator(sd):
     }
 
 
+def convert_linear_classifier(sd):
+    return {"linear": t_linear(sd, "linear")}
+
+
 #: pretrained-model kind -> converter
 CONVERTERS = {
     "forward": convert_forward_model,
     "inverse": convert_inverse_model,
     "embedder": convert_embedding_model,
     "generator": convert_generator,
+    "linear_classifier": convert_linear_classifier,
 }
 
 

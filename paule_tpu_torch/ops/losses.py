@@ -14,6 +14,14 @@ def rmse(yhat, y, *, eps=0.0):
     return torch.sqrt(mse(yhat, y) + eps)
 
 
+def bce_with_logits(logits, targets, *, dim=None):
+    """Binary cross entropy on logits in the stable form ``max(x, 0) - x z
+    + log(1 + exp(-|x|))``, mean-reduced over everything, or over ``dim``."""
+    bce = (torch.clamp(logits, min=0.0) - logits * targets
+           + torch.log1p(torch.exp(-torch.abs(logits))))
+    return bce.mean() if dim is None else bce.mean(dim=dim)
+
+
 def velocity_jerk_loss(pred, *, loss=rmse, guiding_factor=None):
     """(velocity_loss, jerk_loss) of a trajectory against stillness, or
     against a ``guiding_factor``-scaled detached copy of itself."""

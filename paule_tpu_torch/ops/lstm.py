@@ -42,16 +42,35 @@ def lstm_stack2(params1, params2, x):
     return hs2.transpose(0, 1), [(hs1[-1], cs1[-1]), (hs2[-1], cs2[-1])]
 
 
-def lstm(layers, x, *, dropout=0.0, training=False, generator=None):
+def _on(generator, x):
+    """Whether ``generator`` draws on ``x``'s device (an unset index
+    matches any)."""
+    if generator is None or generator.device.type != x.device.type:
+        return False
+    a, b = generator.device.index, x.device.index
+    return a is None or b is None or a == b
+
+
+def lstm(layers, x, *, dropout=0.0, training=False, generator=None,
+         keep_masks=None):
     """Stacked LSTM over a sequence of per-layer parameter dicts.
 
     Two adjacent layers of equal hidden size (the upper one's input being
     the lower one's hidden) run as the fused pair when no dropout is active,
     as ``paule_tpu/ops/lstm.py:116-140`` does.  ``dropout`` applies between
-    layers only, like ``torch.nn.LSTM(dropout=...)``; it draws from
-    ``generator`` when ``training``."""
+    layers only, like ``torch.nn.LSTM(dropout=...)``, as
+    ``where(keep, out / (1 - p), 0)`` (``paule_tpu/ops/lstm.py:143-148``).
+    When ``training``, the keep mask of each layer boundary is drawn on
+    ``x``'s device from ``generator``, which must live there (no mask is
+    drawn on the host and copied), or taken from ``keep_masks``, one boolean
+    ``(B, T, H)`` tensor per boundary in order (a mask drawn elsewhere,
+    e.g. JAX's, replayed)."""
     n = len(layers)
     dropout_active = dropout > 0.0 and training
+    if dropout_active and keep_masks is None and not _on(generator, x):
+        raise ValueError("dropout in training needs a generator on the "
+                         f"input's device ({x.device}) or keep_masks")
+    masks = iter(keep_masks or ())
     h_ns, c_ns = [], []
     out = x
     li = 0
@@ -68,10 +87,11 @@ def lstm(layers, x, *, dropout=0.0, training=False, generator=None):
             continue
         out, (h_n, c_n) = lstm_layer(layers[li], out)
         if dropout_active and li < n - 1:
-            keep = torch.rand(
-                out.shape, generator=generator,
-                device=None if generator is None else generator.device,
-            ).to(out.device) >= dropout
+            if keep_masks is None:
+                keep = torch.rand(out.shape, generator=generator,
+                                  device=out.device) >= dropout
+            else:
+                keep = next(masks)
             out = torch.where(keep, out / (1.0 - dropout), 0.0)
         h_ns.append(h_n)
         c_ns.append(c_n)

@@ -3,10 +3,12 @@ learned forward model and embedder (counterpart of
 ``paule_tpu/planning/engine.py``).
 
 A segment of ``n_steps`` runs eagerly: forward, backward, Adam, then the
-constraint projections.  Per-step logs stay on the device until the caller
-fetches them once per segment.  As in the JAX package, the snapshot logged
-at a step is the trajectory before that step's update, and logs are kept
-for the last step of every ``log_every`` steps.
+constraint projections.  The speech-classifier and somatosensory variants
+add their terms to the criterion when their models are in :class:`Models`
+(``paule_tpu/planning/engine.py:116-161``).  Per-step logs stay on the
+device until the caller fetches them once per segment.  As in the JAX
+package, the snapshot logged at a step is the trajectory before that step's
+update, and logs are kept for the last step of every ``log_every`` steps.
 """
 
 from typing import NamedTuple
@@ -20,7 +22,10 @@ MEL_WEIGHT = 5.0
 VELOCITY_WEIGHT = 80.0
 JERK_WEIGHT = 400.0
 SEMANTIC_WEIGHT = 10.0
+SPEECH_CLASSIFIER_WEIGHT = 0.1
 LOCAL_LINEAR_WEIGHT = 100_000.0
+TUBE_MEL_WEIGHT = MEL_WEIGHT
+TUBE_SEMANTIC_WEIGHT = SEMANTIC_WEIGHT
 
 OBJECTIVES = ("acoustic", "semvec", "acoustic_semvec")
 
@@ -33,11 +38,22 @@ class SubLosses(NamedTuple):
     velocity_loss: torch.Tensor
     jerk_loss: torch.Tensor
     local_linear_loss: torch.Tensor
+    speech_classifier_loss: torch.Tensor
+    tube_mel_loss: torch.Tensor
+    tube_semvec_loss: torch.Tensor
 
 
 class Models(NamedTuple):
+    """The planning models; a variant's models are ``None`` when it is
+    off.  ``tube_generator`` draws the tube embedder's dropout masks (on
+    the trajectory's device)."""
     pred_model: torch.nn.Module
     embedder: torch.nn.Module
+    speech_classifier: torch.nn.Module = None
+    cp_tube_model: torch.nn.Module = None
+    tube_mel_model: torch.nn.Module = None
+    tube_embedder: torch.nn.Module = None
+    tube_generator: torch.Generator = None
 
 
 class Constraints(NamedTuple):
@@ -47,14 +63,21 @@ class Constraints(NamedTuple):
     past_len: int = 0  # leading frames pinned to their initial value
 
 
-def criterion(models, xx, target_mel, target_semvec, *, objective):
+def criterion(models, xx, target_mel, target_semvec, *, objective,
+              tube_keep_masks=None):
     """Weighted planning loss of the ``(1, T, 30)`` trajectory ``xx``.
     -> ``(total, (SubLosses, pred_mel, pred_semvec or None))``.
 
     The mel loss is always computed and logged, but enters the total only
     for ``"acoustic"`` and ``"acoustic_semvec"``; the semvec loss is
     computed, and enters the total, for ``"semvec"`` and
-    ``"acoustic_semvec"``."""
+    ``"acoustic_semvec"``.  With a speech classifier, its BCE against the
+    "speech" label enters the total.  With the somatosensory models, the
+    tube->mel loss of the predicted tube and the tube embedder's semvec
+    loss enter the total under every objective (the JAX package's repair
+    of the reference, ``paule_tpu/planning/engine.py:27-30``); the tube
+    embedder runs in train mode, its dropout masks drawn from
+    ``models.tube_generator`` or given as ``tube_keep_masks``."""
     if objective not in OBJECTIVES:
         raise ValueError(f"objective must be one of {OBJECTIVES}, got "
                          f"{objective!r}")
@@ -67,13 +90,34 @@ def criterion(models, xx, target_mel, target_semvec, *, objective):
     total = vel_w + jerk_w + ll_w
     if objective != "semvec":
         total = total + mel_w
-    sem_w = torch.zeros_like(total)
+    zero = torch.zeros_like(total)
+    sem_w = sc_w = tmel_w = tsem_w = zero
     pred_semvec = None
     if objective != "acoustic":
         pred_semvec = models.embedder(pred_mel)
         sem_w = SEMANTIC_WEIGHT * L.rmse(pred_semvec, target_semvec)
         total = total + sem_w
-    subs = SubLosses(total, mel_w, sem_w, vel_w, jerk_w, ll_w)
+    if models.speech_classifier is not None:
+        logits = models.speech_classifier(pred_mel)
+        sc_w = SPEECH_CLASSIFIER_WEIGHT * L.bce_with_logits(
+            logits, torch.zeros_like(logits))
+        total = total + sc_w
+    if models.cp_tube_model is not None:
+        pred_tube = models.cp_tube_model(xx)
+        pred_tube_mel = models.tube_mel_model(pred_tube)
+        tmel_w = TUBE_MEL_WEIGHT * L.rmse(pred_tube_mel, target_mel)
+        models.tube_embedder.train()
+        try:
+            pred_tube_semvec = models.tube_embedder(
+                pred_tube, generator=models.tube_generator,
+                keep_masks=tube_keep_masks)
+        finally:
+            models.tube_embedder.eval()
+        tsem_w = TUBE_SEMANTIC_WEIGHT * L.rmse(pred_tube_semvec,
+                                               target_semvec)
+        total = total + tsem_w + tmel_w
+    subs = SubLosses(total, mel_w, sem_w, vel_w, jerk_w, ll_w, sc_w, tmel_w,
+                     tsem_w)
     return total, (subs, pred_mel, pred_semvec)
 
 

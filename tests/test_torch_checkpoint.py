@@ -170,3 +170,45 @@ def test_foreign_file_raises(tmp_path, kind):
             p.load_state(path)
     finally:
         p.close()
+
+
+@pytest.mark.parametrize("variant,modules,trainers,keys", [
+    ("use_speech_classifier", ("speech_classifier",), (),
+     ("speech_classifier_params",)),
+    ("use_somatosensory_feedback",
+     ("cp_tube_model", "tube_mel_model", "tube_embedder"),
+     ("tube_trainer", "tube_mel_trainer"),
+     ("cp_tube_params", "cp_tube_opt_state", "tube_mel_params",
+      "tube_mel_opt_state", "tube_embedder_params"))])
+def test_variant_state_roundtrip(tmp_path, target, variant, modules,
+                                 trainers, keys):
+    """A variant's models, the tube models' Adam states (after
+    ``continue_learning_tube``) and the dropout generator come back; an
+    instance without the variant loads the file all the same."""
+    p = Paule(seed=5, **{variant: True}, **F64)
+    q = Paule(seed=999, pretrained_dir="random", **{variant: True}, **F64)
+    plain = Paule(seed=6, **F64)
+    try:
+        p.plan_resynth(target_acoustic=target, objective="acoustic_semvec",
+                       continue_learning=True, continue_learning_tube=True,
+                       **TINY)
+        torch.rand(3, generator=p.tube_generator)
+        p.save_state(tmp_path / "ckpt.pt")
+        q.load_state(tmp_path / "ckpt.pt")
+        plain.load_state(tmp_path / "ckpt.pt")
+        for attr in modules:
+            assert _states_equal(getattr(p, attr).state_dict(),
+                                 getattr(q, attr).state_dict()), attr
+        for trainer in trainers:
+            assert getattr(p, trainer).steps == 1
+            assert _states_equal(
+                getattr(p, trainer).optimizer.state_dict(),
+                getattr(q, trainer).optimizer.state_dict()), trainer
+        assert torch.equal(p.tube_generator.get_state(),
+                           q.tube_generator.get_state())
+        state = CK.load(tmp_path / "ckpt.pt")
+        assert state[variant] is True
+        assert set(keys) <= state.keys()
+    finally:
+        for x in (p, q, plain):
+            x.close()

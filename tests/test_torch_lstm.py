@@ -284,3 +284,53 @@ def test_dropout_only_between_layers():
             ev = TLS.lstm(layers, x, dropout=0.5, training=False)[0]
         assert torch.equal(ev, ref)
         assert (not torch.equal(out, ref)) == changes
+
+
+@pytest.mark.parametrize("sizes", [(12, 12), (12, 12, 12)])
+def test_dropout_with_jax_keep_masks_matches_jax(sizes):
+    """``lstm(..., dropout=0.7, training=True)`` given the keep masks that
+    ``paule_tpu.ops.lstm.lstm(..., deterministic=False, rng=key)`` draws
+    (one ``split`` of the key per layer boundary) gives JAX's output and
+    gradients."""
+    rng = np.random.default_rng(11)
+    layers = [_layer(rng, n_in, h)
+              for n_in, h in zip((10,) + sizes[:-1], sizes)]
+    x = rng.normal(size=(2, 7, 10))
+    key = jax.random.PRNGKey(5)
+
+    def loss_j(params, xs):
+        out, _ = JLS.lstm(params, xs, dropout=0.7, deterministic=False,
+                          rng=key)
+        return jnp.sum(jnp.sin(out)), out
+
+    (_, out_j), grads_j = jax.value_and_grad(loss_j, has_aux=True)(
+        jax.tree.map(jnp.asarray, layers), jnp.asarray(x))
+    masks, k = [], key
+    for h in sizes[:-1]:
+        k, sub = jax.random.split(k)
+        masks.append(torch.tensor(np.asarray(
+            jax.random.bernoulli(sub, 0.3, (2, 7, h)))))
+
+    params = _to_torch(layers)
+    out, _ = TLS.lstm(params, torch.tensor(x), dropout=0.7, training=True,
+                      keep_masks=masks)
+    torch.sin(out).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               rtol=0, atol=ATOL64)
+    _assert_trees_close(_grads_torch(params), grads_j, rtol=0, atol=ATOL64)
+    assert any(not m.all() for m in masks)
+
+
+def test_dropout_draws_on_the_inputs_device():
+    """In training, dropout needs a generator on the input's device (or
+    given masks): no mask is drawn elsewhere and copied over."""
+    rng = np.random.default_rng(12)
+    layers = [_to_torch(_layer(rng, 4, 6)), _to_torch(_layer(rng, 6, 6))]
+    x = torch.tensor(rng.normal(size=(1, 5, 4)))
+    with pytest.raises(ValueError, match="generator"):
+        TLS.lstm(layers, x, dropout=0.5, training=True)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    a = TLS.lstm(layers, x, dropout=0.5, training=True, generator=gen)[0]
+    gen.manual_seed(1)
+    b = TLS.lstm(layers, x, dropout=0.5, training=True, generator=gen)[0]
+    assert torch.equal(a, b)

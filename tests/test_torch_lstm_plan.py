@@ -20,7 +20,9 @@ SMEM = 232_448
 F32 = 4
 
 SHAPES = [(720, b) for b in (1, 4, 8, 24)] + [
-    (hidden, batch) for hidden in (5, 8, 12, 100) for batch in (1, 3, 13)]
+    (hidden, batch) for hidden in (5, 8, 12, 100) for batch in (1, 3, 13)] + [
+    # the somatosensory variant's cp->tube and tube->mel models
+    (360, b) for b in (1, 8, 24)]
 
 
 def _hp(hidden):
@@ -105,6 +107,29 @@ def test_plans_at_the_main_path_shapes():
         b3 = K.stack2_plan(720, batch, N_SM, SMEM)
         assert (b3.blocks, b3.units, b3.chunk) == (132, 11, batch)
     assert K.fwd_plan(720, 1, N_SM, SMEM).smem - F32 * (6 + 720 + 24) == 69_120
+
+
+def test_plans_at_the_somatosensory_shapes():
+    """The somatosensory variant's shapes on 132 SMs (no plan depends on
+    T, so T=402 plans as T=201): B1/B2 at H=360 run 120 blocks of 3 units
+    and stage every row up to B=24 (B1) and B=8 (B2) at once; the tube
+    embedder's two layers run B1/B2 at H=720, B=1 in train mode and B3 at
+    H=720 in eval mode, as the main path's embedder does."""
+    for batch in (1, 8, 24):
+        b1 = K.fwd_plan(360, batch, N_SM, SMEM)
+        assert (b1.blocks, b1.units, b1.chunk, b1.rows) == (120, 3, batch,
+                                                            batch)
+    for batch in (1, 8):
+        b2 = K.bwd_plan(360, batch, N_SM, SMEM)
+        assert (b2.blocks, b2.units, b2.chunk, b2.rows) == (120, 3, batch,
+                                                            batch)
+    assert K.fwd_plan(360, 1, N_SM, SMEM).smem - F32 * (3 + 4 * 3 + 360) == (
+        F32 * 3 * 4 * 360)
+    assert K.bwd_plan(720, 1, N_SM, SMEM).blocks == 120
+    for batch in (1, 24):
+        b3 = K.stack2_plan(720, batch, N_SM, SMEM)
+        assert (b3.blocks, b3.units, b3.chunk) == (132, 11, batch)
+        assert b3.smem <= SMEM
 
 
 def test_large_batches_are_staged_in_chunks():

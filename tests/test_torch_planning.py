@@ -1,7 +1,9 @@
 """The port's planning engine against ``paule_tpu.planning.engine``: a
 3-step segment from the same trajectory with the same (small, H=16) models
 in float64 gives the same trajectory, sub-loss series, snapshots and
-gradients under each objective; the constraint projections match."""
+gradients under each objective; the criterion also under the
+speech-classifier and somatosensory variants (the tube embedder's dropout
+masks those JAX draws); the constraint projections match."""
 
 import numpy as np
 import pytest
@@ -10,9 +12,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from paule_tpu.models import classifier as JC
 from paule_tpu.models import embedder as JE
 from paule_tpu.models import forward as JF
 from paule_tpu.planning import engine as JEng
+from paule_tpu_torch.models.classifier import LinearClassifier
 from paule_tpu_torch.models.embedder import EmbeddingModel
 from paule_tpu_torch.models.forward import ForwardModel
 from paule_tpu_torch.planning import engine as TEng
@@ -78,28 +82,86 @@ def test_segment_matches_jax(objective, log_every):
                                    atol=ATOL, err_msg=key)
 
 
-@pytest.mark.parametrize("objective", TEng.OBJECTIVES)
-def test_criterion_value_and_grad_match_jax(objective):
+def _variant(models, bundle, variant, seed=5):
+    """Add a variant's (small) models to both sides: the linear speech
+    classifier, or cp->tube (H=12), tube->mel (H=12) and the tube embedder
+    (two layers, H=16, dropout 0.7)."""
+    if variant == "plain":
+        return models, bundle
+    keys = iter(jax.random.split(jax.random.PRNGKey(seed), 3))
+    if variant == "speech_classifier":
+        jc = JC.LinearClassifier(input_dim=60, output_dim=1)
+        pc = jc.init(next(keys), jnp.float64)
+        return (models._replace(speech_classifier=load_into(
+                    LinearClassifier(), jax.tree.map(np.asarray, pc), **F64)),
+                bundle._replace(speech_classifier=jc,
+                                speech_classifier_params=pc))
+    shapes = {"cp_tube": dict(num_lstm_layers=1, hidden_size=12,
+                              output_size=10, input_size=30,
+                              apply_half_sequence=False),
+              "tube_mel": dict(num_lstm_layers=1, hidden_size=12,
+                               output_size=60, input_size=10,
+                               apply_half_sequence=True)}
+    jtube = {k: JF.ForwardModel(**v) for k, v in shapes.items()}
+    ptube = {k: m.init(next(keys), jnp.float64) for k, m in jtube.items()}
+    je = JE.EmbeddingModel(input_size=10, num_lstm_layers=2, hidden_size=16,
+                           dropout=0.7)
+    pe = je.init(next(keys), jnp.float64)
+    port = {k: load_into(ForwardModel(**shapes[k]),
+                         jax.tree.map(np.asarray, ptube[k]), **F64)
+            for k in shapes}
+    return (models._replace(
+                cp_tube_model=port["cp_tube"],
+                tube_mel_model=port["tube_mel"],
+                tube_embedder=load_into(
+                    EmbeddingModel(input_size=10, num_lstm_layers=2,
+                                   hidden_size=16, dropout=0.7),
+                    jax.tree.map(np.asarray, pe), **F64).eval()),
+            bundle._replace(
+                cp_tube_model=jtube["cp_tube"],
+                cp_tube_params=ptube["cp_tube"],
+                tube_mel_model=jtube["tube_mel"],
+                tube_mel_params=ptube["tube_mel"], tube_embedder=je,
+                tube_embedder_params=pe))
+
+
+@pytest.mark.parametrize("objective,variant", [
+    # the plain criterion's cases keep their ids
+    pytest.param(objective, variant, id=objective if variant == "plain"
+                 else f"{objective}-{variant}")
+    for variant in ("plain", "speech_classifier", "somatosensory")
+    for objective in TEng.OBJECTIVES])
+def test_criterion_value_and_grad_match_jax(objective, variant):
     """The total, every sub-loss (the mel loss is logged under ``"semvec"``
     although it is left out of the total) and the trajectory's gradient.
     The port's criterion runs the embedder only when the objective needs
     it, as JAX's ``plan_segment`` calls its criterion
-    (``log_semantics=False``, the semantics logged after the segment)."""
+    (``log_semantics=False``, the semantics logged after the segment).
+    Under the somatosensory variant the tube embedder runs in train mode
+    with the keep mask JAX draws from ``fold_in(rng, 1)``."""
     models, bundle, xx, tmel, tsem = _setup(seed=3)
+    models, bundle = _variant(models, bundle, variant)
+    rng = jax.random.PRNGKey(0)
 
     def loss_j(x):
         return JEng.criterion(bundle, x, jnp.asarray(tmel),
                               jnp.asarray(tsem), objective=objective,
-                              use_speech_classifier=False,
-                              use_somatosensory=False, log_semantics=False,
-                              rng=jax.random.PRNGKey(0))
+                              use_speech_classifier=(
+                                  variant == "speech_classifier"),
+                              use_somatosensory=variant == "somatosensory",
+                              log_semantics=False, rng=rng)
 
     (vj, (subs_j, *_)), gj = jax.value_and_grad(loss_j, has_aux=True)(
         jnp.asarray(xx))
+    masks = None
+    if variant == "somatosensory":
+        _, sub = jax.random.split(jax.random.fold_in(rng, 1))
+        masks = [torch.tensor(np.asarray(jax.random.bernoulli(
+            sub, 0.3, (1, xx.shape[1], 16))))]
     xt = torch.tensor(xx, requires_grad=True)
     vt, (subs_t, _mel, pred_semvec) = TEng.criterion(
         models, xt, torch.tensor(tmel), torch.tensor(tsem),
-        objective=objective)
+        objective=objective, tube_keep_masks=masks)
     vt.backward()
     np.testing.assert_allclose(vt.item(), float(vj), rtol=0, atol=ATOL)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gj), rtol=0,
@@ -110,6 +172,12 @@ def test_criterion_value_and_grad_match_jax(objective):
             rtol=0, atol=ATOL, err_msg=field)
     assert subs_t.mel_loss.item() > 0
     assert (pred_semvec is None) == (objective == "acoustic")
+    assert (subs_t.speech_classifier_loss.item() > 0) == (
+        variant == "speech_classifier")
+    assert (subs_t.tube_semvec_loss.item() > 0) == (
+        variant == "somatosensory")
+    if models.tube_embedder is not None:
+        assert not models.tube_embedder.training
 
 
 @pytest.mark.parametrize("cons", [

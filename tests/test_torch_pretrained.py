@@ -2,7 +2,9 @@
 ``paule_tpu.api.Paule`` on a reference-layout ``pretrained_models/`` tree
 that the test writes itself, from the release's trees with a seeded 1%
 jitter (so that a plan from the tree differs from one from the release),
-inverting ``paule_tpu/models/torch_convert.py``."""
+inverting ``paule_tpu/models/torch_convert.py``; the variants' files (the
+speech classifier, and the three ``somatosensory/`` files told apart by
+their names) in a second tree."""
 
 import jax
 import numpy as np
@@ -10,6 +12,7 @@ import pytest
 import torch
 
 from paule_tpu import release as JR
+from paule_tpu.api import Paule as JPaule
 from paule_tpu.models import torch_convert as JTC
 from paule_tpu_torch.api import Paule
 from paule_tpu_torch.models import torch_convert as TTC
@@ -31,6 +34,21 @@ FILES = {
 }
 KIND = {"predictive": "forward", "inverse": "inverse",
         "embedder": "embedder", "cp_gan": "generator", "mel_gan": "generator"}
+#: the variants' files, as the reference ships them
+#: (tests/test_pretrained_tree.py:48-55); in name order the three
+#: somatosensory files would all resolve to the first without the filters
+VARIANT_FILES = {
+    "speech_classifier": "speech_classifier/linear_model_rec_as_"
+                         "nonspeech.pt",
+    "cp_tube": "somatosensory/cp_to_tube_model_1_360_lr_0001_50_00001_"
+               "100.pt",
+    "tube_mel": "somatosensory/tube_to_mel_model_1_360_lr_0001_50_00001_"
+                "100.pt",
+    "tube_embedder": "somatosensory/tube_to_vector_model_2_720_0_dropout_"
+                     "07_noise_6e05_rmse_lr_00001_200.pt",
+}
+KIND.update(speech_classifier="linear_classifier", cp_tube="forward",
+            tube_mel="forward", tube_embedder="embedder")
 #: the port's attribute of each model
 ATTR = {"predictive": "pred_model", "inverse": "inv_model",
         "embedder": "embedder", "cp_gan": "cp_gen_model",
@@ -66,7 +84,8 @@ def to_reference(kind, tree):
     sd = {}
     if kind in ("forward", "embedder", "inverse"):
         sd.update(_lstm(tree["lstm"]))
-    for name in ("post_linear", "linear_mapping", "fully_connected"):
+    for name in ("post_linear", "linear_mapping", "fully_connected",
+                 "linear"):
         if name in tree:
             sd.update(_linear(tree[name], name))
     if kind == "inverse":
@@ -99,17 +118,21 @@ def trees():
     return {key: jax.tree.map(
         lambda a: np.asarray(a, np.float64)
         * (1.0 + 0.01 * rng.normal(size=np.shape(a))), weights[key])
-        for key in FILES}
+        for key in (*FILES, *VARIANT_FILES)}
+
+
+def _write_tree(root, files, trees):
+    for key, rel in files.items():
+        path = root / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(to_reference(KIND[key], trees[key]), path)
+    return root
 
 
 @pytest.fixture(scope="module")
 def tree_dir(trees, tmp_path_factory):
-    root = tmp_path_factory.mktemp("pretrained_models")
-    for key, rel in FILES.items():
-        path = root / rel
-        path.parent.mkdir(parents=True)
-        torch.save(to_reference(KIND[key], trees[key]), path)
-    return root
+    return _write_tree(tmp_path_factory.mktemp("pretrained_models"), FILES,
+                       trees)
 
 
 def _state_equal(module, tree):
@@ -219,3 +242,30 @@ def test_partial_tree_falls_back_to_random(tree_dir, tmp_path, trees):
     finally:
         p.close()
         q.close()
+
+
+@pytest.mark.parametrize("variant,keys", [
+    ("use_speech_classifier", {"speech_classifier": "speech_classifier"}),
+    ("use_somatosensory_feedback", {
+        "cp_tube": "cp_tube_model", "tube_mel": "tube_mel_model",
+        "tube_embedder": "tube_embedder"})])
+def test_pretrained_dir_reads_the_variants_files(trees, tmp_path, variant,
+                                                 keys):
+    """Each variant model is read from its own file, the one the JAX
+    package picks."""
+    root = _write_tree(tmp_path, VARIANT_FILES, trees)
+    port = Paule(device="cpu", dtype=torch.float64, pretrained_dir=str(root),
+                 **{variant: True})
+    jpaule = JPaule(pretrained_dir=str(root), **{variant: True})
+    jparams = {"speech_classifier": jpaule.speech_classifier_params,
+               "cp_tube": jpaule.cp_tube_params,
+               "tube_mel": jpaule.tube_mel_params,
+               "tube_embedder": jpaule.tube_embedder_params}
+    try:
+        for key, attr in keys.items():
+            module = getattr(port, attr)
+            assert _state_equal(module, trees[key]), key
+            assert _state_equal(module, jax.tree.map(np.asarray,
+                                                     jparams[key])), key
+    finally:
+        port.close()

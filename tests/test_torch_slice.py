@@ -152,18 +152,21 @@ def test_options_outside_the_slice_raise(target):
     item."""
     port = Paule(device="cpu", dtype=torch.float64)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-            port.plan_resynth(target_acoustic=target, n_outer=1, n_inner=1,
-                              continue_learning_tube=True)
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
             port.plan_resynth(target_acoustic=target, n_outer=1, n_inner=1,
                               continue_learning=False, plot=True)
     finally:
         port.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        Paule(device="cpu", use_speech_classifier=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
         Paule(device="cpu", physical_forward=True)
+
+
+def test_both_variants_together_raise():
+    """The speech-classifier and somatosensory variants exclude each other,
+    with the JAX package's message."""
+    with pytest.raises(ValueError, match="either to use"):
+        Paule(device="cpu", use_speech_classifier=True,
+              use_somatosensory_feedback=True)
 
 
 def test_paule_without_cuda_raises(monkeypatch):
@@ -186,7 +189,7 @@ def test_import_leaves_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'pandas', 'paule_tpu'))\n"
         "for name in ('api', 'checkpoint', 'models.generative', "
-        "'models.torch_convert', 'dsp.griffinlim'):\n"
+        "'models.torch_convert', 'dsp.griffinlim', 'models.classifier'):\n"
         "    assert 'paule_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
