@@ -39,36 +39,57 @@ Run from the root of a checkout:  python3 chip_smoke.py
    of all four trained models at the main path's budget; checks the loss
    and tube series and that B1-B4 each launched, and counts the launches
    per kernel and shape; then a short run of the speech-classifier variant;
-7. holds short plans on the card (float32) against the CPU (float64),
-   without and with continue-learning, a short semvec-only plan, and a
-   short somatosensory plan with continue-learning (the tube embedder's
-   dropout set to 0 on both sides);
-8. prints one JSON line with the kernels' numbers and, last, one JSON line
+7. drives the batched and chunked planners and the entry points on the
+   main path's ``Paule``: ``experiments.plan_corpus_batched`` over 10
+   synthesised targets of two lengths (a batch of 8 at 402 cp frames and
+   one of 2 at 302; B1/B2 at (402, 8) and B3/B4 at (201, 8) in every inner
+   step), with its phase split, launches per shape, utterances per second
+   beside the main path's and the device-busy share of one traced call;
+   ``Paule.plan_iterative`` on ~400 mel frames in chunks of 64; the HTTP
+   service (``serve.make_server`` on 127.0.0.1, a free port: /health,
+   /plan, /plan_batch, a bad request); and the command line
+   (``python -m paule_tpu_torch plan`` and ``corpus --batched 4`` through
+   its ``main``, on a temporary corpus of 4 WAVs);
+8. holds short plans on the card (float32) against the CPU (float64),
+   without and with continue-learning, a short semvec-only plan, a short
+   somatosensory plan with continue-learning (the tube embedder's dropout
+   set to 0 on both sides), and a short batched plan (three utterances);
+9. prints one JSON line with the kernels' numbers and, last, one JSON line
    with the device.
 
 The kernel phase also holds B1/B2 at the somatosensory variant's H=360
-shapes, and B3 at T=402 (the tube embedder), against their plain
-versions.
+shapes, B3 at T=402 (the tube embedder), and B3/B4 at (201, 8), batched
+planning's embedder, against their plain versions.
 
 Exits non-zero on any failure, and when no CUDA device is present.
 """
 
 import bisect
 import collections
+import http.client
 import json
+import os
+import pickle
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from paule_tpu_torch import experiments as X
+from paule_tpu_torch import serve as S
 from paule_tpu_torch import synth
+from paule_tpu_torch.__main__ import main as cli_main
 from paule_tpu_torch.api import Paule
+from paule_tpu_torch.dsp import audio as audio_io
 from paule_tpu_torch.dsp.griffinlim import mel_to_sig
 from paule_tpu_torch.dsp.targets import audio_target_to_mel
 from paule_tpu_torch.ops import lstm_kernels as K
 from paule_tpu_torch.ops.normalize import inv_normalize_cp
+from paule_tpu_torch.parallel import batched as TB
 from paule_tpu_torch.tools import kernel_ceiling_probes as P
 from paule_tpu_torch.tools.timing import (bound_ms, cuda_ms, cudnn_lstm_ms,
                                           lstm_bwd_bound, lstm_fwd_bound)
@@ -367,23 +388,23 @@ def _covered(union, a, b):
     return total
 
 
-def device_busy_share(paule, kw, untraced):
-    """One more ``plan_resynth(**kw)`` call under ``torch.profiler``, not
-    timed: per phase (the ``plan_resynth.<phase>`` ranges of
-    ``paule_tpu_torch.api``), the seconds in which the card ran a kernel or
-    a copy, as a share of the traced call's phase wall time and of the
-    untraced call's (``untraced``: its ``last_planning_timings``; the
-    profiler slows the host, not the card).  -> {phase: share of the traced
-    wall}."""
+def device_busy_share(run, untraced, scope="plan_resynth"):
+    """One more call of ``run()`` under ``torch.profiler``, not timed: per
+    phase (the ``<scope>.<phase>`` ranges of ``paule_tpu_torch.api`` and
+    ``parallel.batched``, summed over their occurrences), the seconds in
+    which the card ran a kernel or a copy, as a share of the traced call's
+    phase wall time and of the untraced call's (``untraced``: {phase:
+    seconds}; the profiler slows the host, not the card).  -> {phase:
+    share of the traced wall}."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        paule.plan_resynth(**kw)
+        run()
         torch.cuda.synchronize()
     windows, device = collections.defaultdict(list), []
     for e in prof.events():
         span = (e.time_range.start, e.time_range.end)
-        if e.name.startswith("plan_resynth."):
+        if e.name.startswith(scope + "."):
             if e.device_type == torch.autograd.DeviceType.CPU:
                 windows[e.name.split(".", 1)[1]].append(span)
         elif e.device_type == torch.autograd.DeviceType.CUDA:
@@ -443,19 +464,24 @@ def synth_target(n_frames, seed):
     return synth.speak(inv_normalize_cp(cp))
 
 
+def counts():
+    """The LSTM kernels' launch counts, by name."""
+    return {k.__name__: k.launches for k in K.KERNELS}
+
+
 def timed_plan(paule, kw, label):
     """One ``plan_resynth`` call with the launch counts set to 0 just
-    before it; -> (results, launches, timings)."""
+    before it; -> (results, launches, timings with the call's ``wall``)."""
     K.reset_launch_counts()
     t0 = time.perf_counter()
     r = paule.plan_resynth(**kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in K.KERNELS}
+    launches = counts()
     t = paule.last_planning_timings
     print(f"{label}: {wall:.3f} s; " + ", ".join(
         f"{k} {v:.3f} s" for k, v in t.items()))
-    return r, launches, t
+    return r, launches, dict(t, wall=wall)
 
 
 def check_losses(r, n_logged, n_frames, what):
@@ -541,7 +567,7 @@ def drive_continue_learning(paule, target, step_ms):
     print(f"  launches during the run: {launches}; without continue-"
           f"learning: {planning_only}")
     print("  device-busy share per phase (one traced warm call):")
-    busy = device_busy_share(paule, kw, t)
+    busy = device_busy_share(lambda: paule.plan_resynth(**kw), t)
     ok = check_losses(r, n_outer * n_inner, 402, "continue-learning path")
     if not {"planning", "continue_learning"} <= busy.keys():
         print("continue-learning path: the trace shows no phase ranges",
@@ -863,6 +889,291 @@ def check_semvec_against_cpu():
               f"{s} {e:.1e}" for s, e in rel_errs(out, produced).items()))
     return err <= PLAN_RTOL and gen_err <= PLAN_RTOL
 
+PHASES = ("planning", "synthesis", "metrics", "continue_learning")
+
+
+def batched_calls(fn):
+    """Run ``fn()`` with ``parallel.batched.plan_batch_resynth`` wrapped.
+    -> (fn's result, [(B, cp frames, its result, its phase timings)] of
+    each call)."""
+    calls = []
+    real = TB.plan_batch_resynth
+
+    def wrapped(paule, mels, *args, **kwargs):
+        out = real(paule, mels, *args, **kwargs)
+        calls.append((len(mels), 2 * mels.shape[1], out,
+                      dict(paule.last_planning_timings)))
+        return out
+
+    TB.plan_batch_resynth = wrapped
+    try:
+        return fn(), calls
+    finally:
+        TB.plan_batch_resynth = real
+
+
+def drive_batched(paule, main_times):
+    """Batched corpus planning: ``experiments.plan_corpus_batched`` over 10
+    synthesised targets, 8 of 402 cp frames and 2 of 302 (two length
+    buckets: a batch of 8 and a leftover batch of 2), ``max_batch=8,
+    objective="acoustic_semvec", n_outer=2, n_inner=24``, continue-learning
+    of the predictive model (2 epochs).  Called twice; the warm call's
+    phase split per batch, launches per kernel and per (T, B, H), and
+    utterances per second beside the main path's warm call
+    (``main_times``) are reported, and one more warm call is traced for the
+    device-busy share.  Checks every utterance's plan, audio and curves,
+    and that its planned loss fell.  -> ok."""
+    n_outer, n_inner = 2, 24
+    lengths = [402] * 8 + [302] * 2
+    targets = [synth_target(n, seed=10 + i) for i, n in enumerate(lengths)]
+
+    def run():
+        return X.plan_corpus_batched(
+            paule, targets, max_batch=8, verbose=False, plan_kwargs=dict(
+                objective="acoustic_semvec", n_outer=n_outer,
+                n_inner=n_inner, continue_learning=True))
+
+    t0 = time.perf_counter()
+    run()
+    print(f"plan_corpus_batched(10 utterances, max_batch=8, n_outer={n_outer}"
+          f", n_inner={n_inner}), first call: "
+          f"{time.perf_counter() - t0:.3f} s")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    (results, calls), shapes = launches_by_shape(lambda: batched_calls(run))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    steps = n_outer * n_inner
+    print(f"  second call: {wall:.3f} s, {len(targets) / wall:.2f} "
+          f"utterances per s (main path's warm plan_resynth: "
+          f"{1 / main_times['wall']:.2f} per s, {main_times['wall']:.3f} s)")
+    total = dict.fromkeys(PHASES, 0.0)
+    for b, t_cp, _out, tm in calls:
+        print(f"  batch B={b} T={t_cp}: planning "
+              f"{tm['planning'] / steps * 1e3:.2f} ms per inner step "
+              f"({tm['planning'] / steps / b * 1e3:.2f} per utterance), "
+              f"synthesis {tm['synthesis']:.3f} s, metrics "
+              f"{tm['metrics']:.3f} s, continue_learning "
+              f"{tm['continue_learning']:.3f} s")
+        for k in PHASES:
+            total[k] += tm[k]
+    print("  phases summed: " + ", ".join(f"{k} {v:.3f} s"
+                                          for k, v in total.items())
+          + f" (main path's warm call: planning "
+          f"{main_times['planning'] / steps * 1e3:.2f} ms per inner step)")
+    print(f"  launches during the run: {launches}")
+    print("  launches by kernel and (T, B, H): " + ", ".join(
+        f"{k[0]} {k[1:]} {n}" for k, n in shapes.items()))
+    ok = [(b, t) for b, t, _o, _t in calls] == [(2, 302), (8, 402)]
+    for b, t_cp, out, _tm in calls:
+        totals = np.stack([s.total for s in out["sub_losses"]])
+        fell = totals[-1, -1] < totals[0, 0]
+        print(f"  B={b}: planned loss first {np.round(totals[0, 0], 4)}, "
+              f"last {np.round(totals[-1, -1], 4)}; pred_model_loss "
+              f"{np.round(out['pred_model_loss'], 5).tolist()}")
+        ok = (ok and totals.shape == (n_outer, n_inner, b)
+              and np.isfinite(totals).all() and fell.all()
+              and len(out["pred_model_loss"]) == n_outer * 2
+              and np.isfinite(out["pred_model_loss"]).all())
+    for res, n_cp in zip(results, lengths):
+        curves = [res["prod_loss_curve"], res["prod_semvec_loss_curve"]]
+        ok = (ok and res["planned_cp"].shape == (n_cp, 30)
+              and res["prod_sig"].shape == ((n_cp - 1) * 110,)
+              and all(c.shape == (n_outer,) for c in curves)
+              and np.isfinite(res["planned_cp"]).all()
+              and np.isfinite(curves).all())
+    if not ok:
+        print("batched path: bad shapes, non-finite losses, or a planned "
+              "loss that did not fall", file=sys.stderr)
+    if not all(launches.values()):
+        print("batched path: a kernel was not launched", file=sys.stderr)
+        ok = False
+    print("  device-busy share per phase (one traced warm call):")
+    busy = device_busy_share(run, total, scope="plan_batch_resynth")
+    if not {"planning", "continue_learning"} <= busy.keys():
+        print("batched path: the trace shows no phase ranges",
+              file=sys.stderr)
+        ok = False
+    return ok
+
+
+def check_batched_against_cpu():
+    """A short batched plan, three utterances of 24 cp frames (2 outer x 3
+    inner steps, continue-learning), on the card (float32) and on the CPU
+    (float64), from the same target mels: the planned losses of every step,
+    the produced curves and the training losses agree."""
+    targets = [synth_target(24, seed=30 + i) for i in range(3)]
+    mels = np.stack([audio_target_to_mel(t, device="cpu",
+                                         dtype=torch.float64)[2]
+                     for t in targets])
+    kw = dict(n_outer=2, n_inner=3, objective="acoustic_semvec",
+              continue_learning=True, n_epochs=2, batch_size=2)
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        paule = Paule(device=dev, dtype=dtype, seed=7)
+        try:
+            r = TB.plan_batch_resynth(paule, mels, **kw)
+        finally:
+            paule.close()
+        out[dev] = {"planned": np.stack([s.total for s in r["sub_losses"]]),
+                    "prod_loss_curve": r["prod_loss_curve"],
+                    "prod_semvec_loss_curve": r["prod_semvec_loss_curve"],
+                    "pred_model_loss": np.array(r["pred_model_loss"])}
+    errs = rel_errs(out, tuple(out["cpu"]))
+    err = max(errs.values())
+    print(f"short batched plan (B=3, T=24, continue-learning), card f32 vs "
+          f"CPU f64: max rel err {err:.3e} (tol {PLAN_RTOL}); per series "
+          + ", ".join(f"{s} {e:.1e}" for s, e in errs.items()))
+    return err <= PLAN_RTOL
+
+
+def drive_iterative(paule):
+    """``Paule.plan_iterative`` on a synthesised target of ~400 mel frames
+    in chunks of 64 (``overlap=8, n_outer=1, n_inner=8,
+    objective="acoustic_semvec"``, the default continue-learning).  Checks
+    that the stitched plan has twice the mel frames, its losses, and that
+    B1-B4 launched.  -> ok."""
+    target = synth_target(800, seed=3)
+    n_mel = audio_target_to_mel(target, device=paule.device,
+                                dtype=paule.dtype)[2].shape[0]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    planned, results = paule.plan_iterative(
+        target_acoustic=target, chunk_size=64, overlap=8, n_outer=1,
+        n_inner=8, objective="acoustic_semvec")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    losses = np.array([r.planned_loss_steps for r in results])
+    print(f"plan_iterative({n_mel} mel frames, chunk_size=64, overlap=8, "
+          f"n_outer=1, n_inner=8): {wall:.3f} s, {len(results)} chunks of "
+          f"{[r.target_mel.shape[0] for r in results]} mel frames; planned_cp "
+          f"{planned.shape}; launches {launches}")
+    ok = (planned.shape == (2 * n_mel, 30) and np.isfinite(planned).all()
+          and np.isfinite(losses).all()
+          and (losses[:, -1] < losses[:, 0]).all())
+    if not ok:
+        print("iterative path: bad stitched plan or losses", file=sys.stderr)
+    if not all(launches.values()):
+        print("iterative path: a kernel was not launched", file=sys.stderr)
+        ok = False
+    return ok
+
+
+def _request(port, method, path, body=None):
+    """-> (status, json) of one request to ``127.0.0.1:port``."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body).encode())
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"{}")
+    finally:
+        conn.close()
+
+
+def drive_serve(paule):
+    """The HTTP service around ``paule`` (on the card) on 127.0.0.1, a free
+    port: /health, /plan (one outer iteration of 4 steps,
+    continue-learning), /plan_batch (4 signals of 302 cp frames, one outer
+    iteration of 4 steps) and a request with an unknown key.  Checks the
+    answers' codes and shapes and that B1-B4 launched.  -> ok."""
+    server = S.make_server(S.PauleService(paule), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever)
+    thread.start()
+    port = server.server_address[1]
+    try:
+        status, health = _request(port, "GET", "/health")
+        sig, sr = synth_target(402, seed=40)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        plan = _request(port, "POST", "/plan", {
+            "signal": S.encode_array(sig), "sample_rate": sr, "n_outer": 1,
+            "n_inner": 4, "objective": "acoustic_semvec"})
+        t_plan = time.perf_counter() - t0
+        sigs = [synth_target(302, seed=41 + i)[0] for i in range(4)]
+        t0 = time.perf_counter()
+        batch = _request(port, "POST", "/plan_batch", {
+            "signals": [S.encode_array(x) for x in sigs], "sample_rate": sr,
+            "n_outer": 1, "n_inner": 4})
+        t_batch = time.perf_counter() - t0
+        launches = counts()
+        bad = _request(port, "POST", "/plan", {
+            "signal": [0.0] * 10, "sample_rate": sr, "n_steps": 3})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    print(f"HTTP service: /health {status} {health}; /plan {plan[0]} in "
+          f"{t_plan:.3f} s; /plan_batch {batch[0]} in {t_batch:.3f} s; "
+          f"unknown key {bad[0]}; launches {launches}")
+    ok = (status == 200 and health["backend"] == "cuda"
+          and health["status"] == "ok" and plan[0] == 200
+          and batch[0] == 200 and bad[0] == 400)
+    if ok:
+        ok = (S.decode_array(plan[1]["planned_cp"]).shape == (402, 30)
+              and len(plan[1]["planned_loss_steps"]) == 4
+              and np.isfinite(plan[1]["prod_loss_steps"]).all()
+              and len(batch[1]["results"]) == 4)
+        for res in batch[1]["results"] if ok else ():
+            ok = (ok and S.decode_array(res["planned_cp"]).shape == (302, 30)
+                  and S.decode_array(res["audio"]).shape == (301 * 110,)
+                  and np.isfinite(res["prod_loss_curve"]).all())
+    if not ok:
+        print("HTTP service: a bad answer", file=sys.stderr)
+    if not all(launches.values()):
+        print("HTTP service: a kernel was not launched", file=sys.stderr)
+        ok = False
+    return ok
+
+
+def drive_cli():
+    """``python -m paule_tpu_torch`` through its ``main``: ``plan`` of one
+    WAV and ``corpus --batched 4`` over a temporary corpus of 4 WAVs (two
+    labels, 202 cp frames each), on the card (the default device), one
+    outer iteration of 4 steps.  Checks the files they write and that
+    B1-B4 launched.  -> ok."""
+    tiny = ["--n-outer", "1", "--n-inner", "4", "--n-epochs", "1",
+            "--quiet"]
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = []
+        for i, name in enumerate(("a1_ba", "a2_ba", "b1_da", "b2_da")):
+            path = os.path.join(tmp, "data", name[-2:], name + ".wav")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            audio_io.write(path, *synth_target(202, seed=50 + i))
+            wavs.append(path)
+        save = os.path.join(tmp, "out", "word")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli_main(["plan", "--target", wavs[0], "--save", save, *tiny])
+        cli_main(["corpus", "--data-dir", os.path.join(tmp, "data"),
+                  "--save-dir", os.path.join(tmp, "corpus_out"),
+                  "--batched", "4", *tiny])
+        wall = time.perf_counter() - t0
+        launches = counts()
+        with open(save + ".pkl", "rb") as fh:
+            planned = pickle.load(fh).planned_cp
+        ok = (planned.shape == (202, 30)
+              and os.path.exists(save + "_state.pkl")
+              and any(os.path.exists(save + "_planned" + ext)
+                      for ext in (".wav", ".flac")))
+        for path in wavs:
+            stem = os.path.splitext(os.path.basename(path))[0]
+            with open(os.path.join(tmp, "corpus_out", stem[-2:],
+                                   stem + "_batched.pkl"), "rb") as fh:
+                res = pickle.load(fh)
+            ok = (ok and res["planned_cp"].shape == (202, 30)
+                  and np.isfinite(res["prod_loss_curve"]).all())
+    print(f"command line: plan and corpus --batched 4, {wall:.3f} s "
+          f"(two Paule() builds included); launches {launches}")
+    if not ok:
+        print("command line: missing or bad result files", file=sys.stderr)
+    if not all(launches.values()):
+        print("command line: a kernel was not launched", file=sys.stderr)
+        ok = False
+    return ok
+
 
 def main():
     if not torch.cuda.is_available():
@@ -888,6 +1199,9 @@ def main():
     # B=24: the produced-audio metrics at the default budget (24 logged
     # snapshots per outer iteration); several row passes per warp
     ok_s24, stack24 = check_stack2(dev, gen, 201, 24)
+    # B=8: batched planning's embedder (parallel.batched at max_batch=8),
+    # forward and backward in every inner step
+    ok_s8, stack8 = check_stack2(dev, gen, 201, 8)
     # T=201, B=8: the inverse model's training shape (201 mel frames)
     ok_ci8, core_inv8 = check_core(dev, gen, 201, 8)
     # the somatosensory variant: the cp->tube and tube->mel models at H=360
@@ -903,18 +1217,20 @@ def main():
     ok_t24, tstack24 = check_stack2(dev, gen, 402, 24)
     ok_edges = check_edges(dev, gen)
     ok_one = check_one_kernel_per_call(dev, gen)
-    ok = (ok_c and ok_c8 and ok_s1 and ok_s4 and ok_s24 and ok_ci8
+    ok = (ok_c and ok_c8 and ok_s1 and ok_s4 and ok_s24 and ok_s8 and ok_ci8
           and ok_tube and ok_t1 and ok_t24 and ok_edges and ok_one)
     results = {**core, **stack}
     for name in core:
         merge_errors(name, results, core8, core_inv8, *tube.values())
     for name in stack:
-        merge_errors(name, results, stack4, stack24, tstack1, tstack24)
+        merge_errors(name, results, stack4, stack24, stack8, tstack1,
+                     tstack24)
     print_times("", results)
     print_times(" T=402 B=8", core8)
     print_times(" T=201 B=8", core_inv8)
     print_times(" B=4", stack4)
     print_times(" B=24", stack24)
+    print_times(" B=8", stack8)
     for batch, res in tube.items():
         print_times(f" T=402 B={batch} H={H_TUBE}", res)
     print_times(" T=402 B=1", tstack1)
@@ -937,8 +1253,16 @@ def main():
                         + core_inv8["lstm_bwd"]["ms"])})
         print("semvec path:")
         ok_sem = drive_semvec(paule, target)
+        print("batched path:")
+        ok_bat = drive_batched(paule, main_times)
+        print("iterative path:")
+        ok_it = drive_iterative(paule)
+        print("HTTP service:")
+        ok_srv = drive_serve(paule)
     finally:
         paule.close()
+    print("command line:")
+    ok_cli = drive_cli()
     print("somatosensory path:")
     ok_som, _shapes = drive_somatosensory(target, launches, main_times)
     print("speech-classifier path:")
@@ -947,8 +1271,10 @@ def main():
     ok_cpu_cl = check_against_cpu(True)
     ok_cpu_sem = check_semvec_against_cpu()
     ok_cpu_som = check_against_cpu(True, somatosensory=True)
+    ok_cpu_bat = check_batched_against_cpu()
     ok = (ok and ok_p and ok_plan and ok_cl and ok_sem and ok_som and ok_sc
-          and ok_cpu and ok_cpu_cl and ok_cpu_sem and ok_cpu_som)
+          and ok_bat and ok_it and ok_srv and ok_cli and ok_cpu and ok_cpu_cl
+          and ok_cpu_sem and ok_cpu_som and ok_cpu_bat)
 
     kernels = []
     for k in K.KERNELS:

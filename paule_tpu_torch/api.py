@@ -12,7 +12,9 @@ somatosensory variant (``use_somatosensory_feedback``: cp->tube, tube->mel
 and a tube embedder beside the acoustic models, tube extraction from the
 synthesizer, ``continue_learning_tube``); weights from the in-repo release,
 a reference ``pretrained_models/`` tree, a seeded random initialisation or
-injected trees; ``save_state`` and ``load_state``.
+injected trees; ``save_state`` and ``load_state``; ``plan_iterative``, the
+chunked planner of long utterances.  Several utterances plan as one batch
+through :mod:`paule_tpu_torch.parallel.batched`.
 
 Options outside the port raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them.  Synthesis, the produced-audio metrics and
@@ -48,7 +50,8 @@ from .ops.normalize import inv_normalize_cp, normalize_mel, normalize_tube
 from .planning import engine
 from .planning.engine import (MEL_WEIGHT, SEMANTIC_WEIGHT,
                               SPEECH_CLASSIFIER_WEIGHT, TUBE_MEL_WEIGHT,
-                              TUBE_SEMANTIC_WEIGHT)
+                              TUBE_SEMANTIC_WEIGHT, rmse_rows)
+from .planning.iterative import plan_iterative
 from .planning.results import (BestSynthesisAcoustic, BestSynthesisSemantic,
                                BestSynthesisSomatosensory, PlanningResults,
                                PlanningResultsWithSomatosensory,
@@ -75,22 +78,17 @@ PRETRAINED = {
 
 
 @contextlib.contextmanager
-def _phase(timings, name):
+def _phase(timings, name, scope="plan_resynth"):
     """Adds the wall time of the block to ``timings[name]`` and marks it as
-    ``plan_resynth.<name>`` in a ``torch.profiler`` trace."""
+    ``<scope>.<name>`` in a ``torch.profiler`` trace."""
     t0 = time.perf_counter()
-    with torch.profiler.record_function(f"plan_resynth.{name}"):
+    with torch.profiler.record_function(f"{scope}.{name}"):
         yield
     timings[name] += time.perf_counter() - t0
 
 
 def _np(t):
     return t.detach().cpu().numpy().astype(np.float64)
-
-
-def _rmse_rows(a, b):
-    """RMSE of each row of ``a`` against ``b`` (broadcast) -> ``(L,)``."""
-    return torch.sqrt(((a - b) ** 2).flatten(1).mean(dim=1))
 
 
 def _tube_features(tube_info):
@@ -276,7 +274,8 @@ class Paule:
         self.best_synthesis_semantic = None
         if use_somatosensory_feedback:
             self.best_synthesis_somatosensory = None
-        #: per-phase wall-clock split of the most recent plan_resynth
+        #: per-phase wall-clock split of the most recent plan_resynth or
+        #: parallel.batched.plan_batch_resynth
         self.last_planning_timings = None
 
     def close(self):
@@ -350,8 +349,17 @@ class Paule:
                             device=self.device)
 
     def _embed(self, mel):
+        """The embedder's semvecs ``(B, 300)`` of the mels ``(B, T, 60)``, a
+        tensor on the device."""
         with torch.no_grad():
             return self.embedder(mel)
+
+    def _models(self):
+        """The planning models, as :mod:`.planning.engine` takes them."""
+        return engine.Models(self.pred_model, self.embedder,
+                             self.speech_classifier, self.cp_tube_model,
+                             self.tube_mel_model, self.tube_embedder,
+                             self.tube_generator)
 
     def _noise(self):
         """The generators' noise ``(1, 1, 100)``: drawn in float64 from
@@ -467,13 +475,13 @@ class Paule:
         with torch.no_grad():
             prod_mel = normalize_mel(melspec_44100(self._tensor(sigs)))
             out = {"prod_mel": prod_mel,
-                   "prod_loss": MEL_WEIGHT * _rmse_rows(prod_mel,
-                                                        target_mel)}
+                   "prod_loss": MEL_WEIGHT * rmse_rows(prod_mel,
+                                                       target_mel)}
             dev = {"prod_mel": prod_mel, "prod_tube": None}
             if want_semvec:
                 prod_semvec = self.embedder(prod_mel)
                 out["prod_semvec"] = prod_semvec
-                out["prod_semvec_loss"] = SEMANTIC_WEIGHT * _rmse_rows(
+                out["prod_semvec_loss"] = SEMANTIC_WEIGHT * rmse_rows(
                     prod_semvec, target_semvec)
             if self.use_speech_classifier:
                 logits = self.speech_classifier(prod_mel)[:, None]
@@ -486,15 +494,15 @@ class Paule:
                 out["pred_tube"] = pred_tube
                 out["prod_tube_mel"] = self.tube_mel_model(tubes)
                 out["pred_tube_mel"] = self.tube_mel_model(pred_tube)
-                out["prod_tube_loss"] = _rmse_rows(pred_tube, tubes)
-                out["prod_tube_mel_loss"] = TUBE_MEL_WEIGHT * _rmse_rows(
+                out["prod_tube_loss"] = rmse_rows(pred_tube, tubes)
+                out["prod_tube_mel_loss"] = TUBE_MEL_WEIGHT * rmse_rows(
                     out["prod_tube_mel"], target_mel)
                 if want_semvec:
                     semvec = self.tube_embedder(tubes)
                     out["prod_tube_semvec"] = semvec
                     out["prod_tube_semvec_loss"] = (
-                        TUBE_SEMANTIC_WEIGHT * _rmse_rows(semvec,
-                                                          target_semvec))
+                        TUBE_SEMANTIC_WEIGHT * rmse_rows(semvec,
+                                                         target_semvec))
         return {k: _np(v) for k, v in out.items()}, dev
 
     def create_epoch_batches(self, df_length, batch_size, shuffle=True,
@@ -643,10 +651,7 @@ class Paule:
             initial_cp = np.concatenate(
                 (np.asarray(past_cp, dtype=np.float64), initial_cp), axis=0)
         xx = self._tensor(initial_cp[None]).requires_grad_(True)
-        models = engine.Models(self.pred_model, self.embedder,
-                               self.speech_classifier, self.cp_tube_model,
-                               self.tube_mel_model, self.tube_embedder,
-                               self.tube_generator)
+        models = self._models()
         constraints = engine.Constraints(clamp=1.05, smiling=self.smiling,
                                          past_len=past_len)
 
@@ -1028,3 +1033,18 @@ class Paule:
             "tube_norm": ([None] * n_prod if prod_tubes is None
                           else list(prod_tubes)),
             "segment_data": [False] * n_prod})
+
+    # ------------------------------------------------------------------
+    # chunked planning
+    # ------------------------------------------------------------------
+
+    def plan_iterative(self, *, target_acoustic=None, target_semvecs=None,
+                       target_seq_lengths=None, overlap=8, **kwargs):
+        """Plan a long utterance in chunks, each conditioned on the last
+        ``overlap`` cp frames of the one before (:mod:`.planning.iterative`,
+        ``paule_tpu/api.py:1695-1705``).  -> ``(planned_cp, [results of
+        each chunk])``."""
+        return plan_iterative(self, target_acoustic=target_acoustic,
+                              target_semvecs=target_semvecs,
+                              target_seq_lengths=target_seq_lengths,
+                              overlap=overlap, **kwargs)

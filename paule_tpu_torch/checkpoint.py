@@ -32,9 +32,10 @@ FORMAT_VERSION = 1
 
 
 def _plain(value):
-    """A replay-buffer cell as something ``weights_only`` loading admits."""
+    """A replay-buffer cell as something ``weights_only`` loading admits;
+    a tensor as a CPU copy of its own."""
     if torch.is_tensor(value):
-        return value.detach().cpu()
+        return value.detach().to("cpu", copy=True)
     if isinstance(value, np.ndarray):
         return torch.from_numpy(np.array(value))
     if isinstance(value, np.generic):
@@ -43,9 +44,11 @@ def _plain(value):
 
 
 def _cpu(tree):
-    """Every tensor of a nest of dicts, lists and tuples, on the CPU."""
+    """A copy of a nest of dicts, lists and tuples, every tensor a CPU copy
+    of its own: ``.cpu()`` of a CPU tensor is the tensor itself, which
+    training then updates in place."""
     if torch.is_tensor(tree):
-        return tree.detach().cpu()
+        return tree.detach().to("cpu", copy=True)
     if isinstance(tree, dict):
         return {k: _cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -115,11 +118,15 @@ def load(path):
 
 def restore_paule_state(paule, state):
     """Load a :func:`paule_state` dict into ``paule``; parameters and Adam
-    states are cast to its device and dtype."""
+    states are cast to its device and dtype.  ``state`` is left as it was:
+    the optimizers and the replay buffer get copies of its tensors and
+    lists (``Optimizer.load_state_dict`` keeps a CPU tensor of the right
+    dtype as it is, and Adam updates its moments in place)."""
     paule.pred_model.load_state_dict(state["pred_params"])
-    paule.pred_trainer.optimizer.load_state_dict(state["pred_opt_state"])
+    paule.pred_trainer.optimizer.load_state_dict(
+        _cpu(state["pred_opt_state"]))
     paule.inv_model.load_state_dict(state["inv_params"])
-    paule.inv_trainer.optimizer.load_state_dict(state["inv_opt_state"])
+    paule.inv_trainer.optimizer.load_state_dict(_cpu(state["inv_opt_state"]))
     paule.embedder.load_state_dict(state["embedder_params"])
     paule.cp_gen_model.load_state_dict(state["cp_gen_params"])
     paule.mel_gen_model.load_state_dict(state["mel_gen_params"])
@@ -131,6 +138,6 @@ def restore_paule_state(paule, state):
             state["speech_classifier_params"])
     if paule.use_somatosensory_feedback and "cp_tube_params" in state:
         for k, v in _somato_parts(paule).items():
-            v.load_state_dict(state[k])
-    paule.continue_data.data = state["continue_data"]
+            v.load_state_dict(_cpu(state[k]))
+    paule.continue_data.data = _cpu(state["continue_data"])
     return paule

@@ -5,7 +5,10 @@ learned forward model and embedder (counterpart of
 A segment of ``n_steps`` runs eagerly: forward, backward, Adam, then the
 constraint projections.  The speech-classifier and somatosensory variants
 add their terms to the criterion when their models are in :class:`Models`
-(``paule_tpu/planning/engine.py:116-161``).  Per-step logs stay on the
+(``paule_tpu/planning/engine.py:116-161``).  One criterion serves a batch of
+utterances (:func:`criterion_batched`, the batched planners of
+:mod:`paule_tpu_torch.parallel.batched`) and the one trajectory of
+``plan_resynth`` (:func:`criterion`).  Per-step logs stay on the
 device until the caller fetches them once per segment.  As in the JAX
 package, the snapshot logged at a step is the trajectory before that step's
 update, and logs are kept for the last step of every ``log_every`` steps.
@@ -16,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import losses as L
+from ..ops.derivatives import local_linear, vel_acc_jerk
 
 # loss weights (paule_tpu/planning/engine.py:43-50)
 MEL_WEIGHT = 5.0
@@ -63,15 +67,30 @@ class Constraints(NamedTuple):
     past_len: int = 0  # leading frames pinned to their initial value
 
 
-def criterion(models, xx, target_mel, target_semvec, *, objective,
-              tube_keep_masks=None):
-    """Weighted planning loss of the ``(1, T, 30)`` trajectory ``xx``.
-    -> ``(total, (SubLosses, pred_mel, pred_semvec or None))``.
+def _bmean(x):
+    """Mean over every axis but the leading batch axis -> ``(B,)``."""
+    return x.flatten(1).mean(dim=1)
+
+
+def rmse_rows(a, b):
+    """RMSE of each row of ``a`` against ``b`` (broadcast) -> ``(B,)``."""
+    return torch.sqrt(_bmean((a - b) ** 2))
+
+
+def criterion_batched(models, xx, target_mel, target_semvec, *, objective,
+                      log_semantics=False, tube_keep_masks=None):
+    """Weighted planning loss of each utterance of the batch ``xx (B, T,
+    30)`` against ``target_mel (B, F, 60)`` and ``target_semvec (B, 300)``
+    (``paule_tpu/planning/engine.py:165-247``).  Each model runs once at
+    batch B, and every reduction is per utterance, so row b is the loss of
+    utterance b alone and the gradient of ``total.sum()`` holds B
+    independent gradients.  -> ``(total (B,), (SubLosses of (B,) tensors,
+    pred_mel, pred_semvec or None))``.
 
     The mel loss is always computed and logged, but enters the total only
-    for ``"acoustic"`` and ``"acoustic_semvec"``; the semvec loss is
-    computed, and enters the total, for ``"semvec"`` and
-    ``"acoustic_semvec"``.  With a speech classifier, its BCE against the
+    for ``"acoustic"`` and ``"acoustic_semvec"``; the embedder runs for
+    ``"semvec"`` and ``"acoustic_semvec"``, whose totals take its loss, or
+    with ``log_semantics``.  With a speech classifier, its BCE against the
     "speech" label enters the total.  With the somatosensory models, the
     tube->mel loss of the predicted tube and the tube embedder's semvec
     loss enter the total under every objective (the JAX package's repair
@@ -82,30 +101,31 @@ def criterion(models, xx, target_mel, target_semvec, *, objective,
         raise ValueError(f"objective must be one of {OBJECTIVES}, got "
                          f"{objective!r}")
     pred_mel = models.pred_model(xx)
-    mel_w = MEL_WEIGHT * L.rmse(pred_mel, target_mel)
-    vel_loss, jerk_loss = L.velocity_jerk_loss(xx, loss=L.mse)
-    vel_w = VELOCITY_WEIGHT * vel_loss
-    jerk_w = JERK_WEIGHT * jerk_loss
-    ll_w = LOCAL_LINEAR_WEIGHT * L.local_linear_loss(xx)
+    mel_w = MEL_WEIGHT * rmse_rows(pred_mel, target_mel)
+    vel, _acc, jerk = vel_acc_jerk(xx)
+    vel_w = VELOCITY_WEIGHT * _bmean(vel ** 2)
+    jerk_w = JERK_WEIGHT * _bmean(jerk ** 2)
+    ll_w = LOCAL_LINEAR_WEIGHT * _bmean(local_linear(xx) ** 2)
     total = vel_w + jerk_w + ll_w
     if objective != "semvec":
         total = total + mel_w
     zero = torch.zeros_like(total)
     sem_w = sc_w = tmel_w = tsem_w = zero
     pred_semvec = None
-    if objective != "acoustic":
+    if objective != "acoustic" or log_semantics:
         pred_semvec = models.embedder(pred_mel)
-        sem_w = SEMANTIC_WEIGHT * L.rmse(pred_semvec, target_semvec)
-        total = total + sem_w
+        sem_w = SEMANTIC_WEIGHT * rmse_rows(pred_semvec, target_semvec)
+        if objective != "acoustic":
+            total = total + sem_w
     if models.speech_classifier is not None:
-        logits = models.speech_classifier(pred_mel)
+        logits = models.speech_classifier(pred_mel)[:, None]
         sc_w = SPEECH_CLASSIFIER_WEIGHT * L.bce_with_logits(
-            logits, torch.zeros_like(logits))
+            logits, torch.zeros_like(logits), dim=1)
         total = total + sc_w
     if models.cp_tube_model is not None:
         pred_tube = models.cp_tube_model(xx)
         pred_tube_mel = models.tube_mel_model(pred_tube)
-        tmel_w = TUBE_MEL_WEIGHT * L.rmse(pred_tube_mel, target_mel)
+        tmel_w = TUBE_MEL_WEIGHT * rmse_rows(pred_tube_mel, target_mel)
         models.tube_embedder.train()
         try:
             pred_tube_semvec = models.tube_embedder(
@@ -113,12 +133,25 @@ def criterion(models, xx, target_mel, target_semvec, *, objective,
                 keep_masks=tube_keep_masks)
         finally:
             models.tube_embedder.eval()
-        tsem_w = TUBE_SEMANTIC_WEIGHT * L.rmse(pred_tube_semvec,
+        tsem_w = TUBE_SEMANTIC_WEIGHT * rmse_rows(pred_tube_semvec,
                                                target_semvec)
         total = total + tsem_w + tmel_w
     subs = SubLosses(total, mel_w, sem_w, vel_w, jerk_w, ll_w, sc_w, tmel_w,
                      tsem_w)
     return total, (subs, pred_mel, pred_semvec)
+
+
+def criterion(models, xx, target_mel, target_semvec, *, objective,
+              tube_keep_masks=None):
+    """:func:`criterion_batched` of the one trajectory ``xx (1, T, 30)``,
+    the embedder run only when the objective needs it (the semantics are
+    logged after the segment).  -> ``(total, (SubLosses, pred_mel,
+    pred_semvec or None))``, the losses scalars."""
+    total, (subs, pred_mel, pred_semvec) = criterion_batched(
+        models, xx, target_mel, target_semvec, objective=objective,
+        tube_keep_masks=tube_keep_masks)
+    return total[0], (SubLosses(*(s[0] for s in subs)), pred_mel,
+                      pred_semvec)
 
 
 def apply_constraints(xx, xx_init, cons: Constraints):

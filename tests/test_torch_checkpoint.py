@@ -212,3 +212,34 @@ def test_variant_state_roundtrip(tmp_path, target, variant, modules,
     finally:
         for x in (p, q, plain):
             x.close()
+
+
+def test_state_taken_before_training_is_restored_bit_for_bit(target):
+    """``paule_state`` of an instance on the CPU owns its tensors: a
+    continue-learning plan after it (which updates the parameters and Adam
+    moments in place) leaves it as it was, so restoring it brings back the
+    instance as it was when the state was taken, and restoring it twice
+    gives the same."""
+    p = Paule(seed=5, continue_data=_replay_frame(), **F64)
+    try:
+        kw = dict(target_acoustic=target, continue_learning=True,
+                  continue_learning_inv=True, **TINY)
+        p.plan_resynth(**kw)  # the Adam moments are no longer empty
+        before = [{k: v.clone() for k, v in m.state_dict().items()}
+                  for m in (p.pred_model, p.inv_model)]
+        opt_before = [CK._cpu(t.optimizer.state_dict())
+                      for t in (p.pred_trainer, p.inv_trainer)]
+        n_rows = len(p.continue_data)
+        state = CK.paule_state(p)
+        for _ in range(2):
+            p.plan_resynth(**kw)
+            assert not _states_equal(dict(p.pred_model.state_dict()),
+                                     before[0]), "the plan did not train"
+            CK.restore_paule_state(p, state)
+            for m, want in zip((p.pred_model, p.inv_model), before):
+                assert _states_equal(dict(m.state_dict()), want)
+            for t, want in zip((p.pred_trainer, p.inv_trainer), opt_before):
+                assert _states_equal(CK._cpu(t.optimizer.state_dict()), want)
+            assert len(p.continue_data) == n_rows
+    finally:
+        p.close()

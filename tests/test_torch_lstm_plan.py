@@ -19,7 +19,7 @@ N_SM = 132
 SMEM = 232_448
 F32 = 4
 
-SHAPES = [(720, b) for b in (1, 4, 8, 24)] + [
+SHAPES = [(720, b) for b in (1, 4, 8, 16, 24)] + [
     (hidden, batch) for hidden in (5, 8, 12, 100) for batch in (1, 3, 13)] + [
     # the somatosensory variant's cp->tube and tube->mel models
     (360, b) for b in (1, 8, 24)]
@@ -130,6 +130,21 @@ def test_plans_at_the_somatosensory_shapes():
         b3 = K.stack2_plan(720, batch, N_SM, SMEM)
         assert (b3.blocks, b3.units, b3.chunk) == (132, 11, batch)
         assert b3.smem <= SMEM
+
+
+@pytest.mark.parametrize("batch", [8, 16])
+def test_stack_plans_at_the_batched_planning_shapes(batch):
+    """Batched planning runs B3 and B4 at (201, B) in every inner step,
+    for B up to its ``max_batch`` (8 by default): 66 blocks per layer of 11
+    units; B3 stages every row of the batch at once, B4 chunks of 4 rows
+    (2 or 4 chunks a step), with at least the shortest weight ring."""
+    b3 = K.stack2_plan(720, batch, N_SM, SMEM)
+    assert (b3.blocks, b3.units, b3.chunk, b3.rows) == (132, 11, batch,
+                                                        batch)
+    b4 = K.stack2_bwd_plan(720, batch, N_SM, SMEM)
+    assert (b4.blocks, b4.units, b4.chunk, b4.rows) == (132, 11, 4, 4)
+    for plan in (b3, b4):
+        assert K.MIN_STAGES <= plan.stages and plan.smem <= SMEM
 
 
 def test_large_batches_are_staged_in_chunks():

@@ -189,7 +189,9 @@ def test_import_leaves_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'pandas', 'paule_tpu'))\n"
         "for name in ('api', 'checkpoint', 'models.generative', "
-        "'models.torch_convert', 'dsp.griffinlim', 'models.classifier'):\n"
+        "'models.torch_convert', 'dsp.griffinlim', 'models.classifier', "
+        "'parallel.batched', 'planning.iterative', 'experiments', "
+        "'serve', '__main__'):\n"
         "    assert 'paule_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
