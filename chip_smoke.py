@@ -50,22 +50,39 @@ Run from the root of a checkout:  python3 chip_smoke.py
    /plan, /plan_batch, a bad request); and the command line
    (``python -m paule_tpu_torch plan`` and ``corpus --batched 4`` through
    its ``main``, on a temporary corpus of 4 WAVs);
-8. holds short plans on the card (float32) against the CPU (float64),
+8. drives the training path: the port's release recipe
+   (``paule_tpu_torch.tools.train_release_weights``) at the release's
+   widths and batch 16 on a small corpus (:data:`PRETRAIN`), with per
+   stage its wall time, Adam steps, ms per step, first and last loss and
+   B1-B4 launches by (T, B, H), the device-busy share of one more, traced
+   forward stage, checks that every trained tree and the generators'
+   batch-norm statistics moved, and the written release loaded back and
+   planned with (``drive_pretrain``); then one Adam step of each zoo
+   model that only training uses (``drive_zoo``: ``SemVecTo*`` at H=180,
+   ``LSTMCritic``/``LSTMGenerator`` at H=200 in training and eval);
+9. holds short plans on the card (float32) against the CPU (float64),
    without and with continue-learning, a short semvec-only plan, a short
    somatosensory plan with continue-learning (the tube embedder's dropout
-   set to 0 on both sides), and a short batched plan (three utterances);
-9. prints one JSON line with the kernels' numbers and, last, one JSON line
-   with the device.
+   set to 0 on both sides), a short batched plan (three utterances), and
+   training (``check_pretrain_against_cpu``: ``train_forward``,
+   ``train_embedder`` and ``train_gan`` at full width, batch 16, the
+   GAN's draws made on the CPU for both);
+10. prints one JSON line with the kernels' numbers and, last, one JSON
+    line with the device.
 
 The kernel phase also holds B1/B2 at the somatosensory variant's H=360
-shapes, B3 at T=402 (the tube embedder), and B3/B4 at (201, 8), batched
-planning's embedder, against their plain versions.
+shapes, B3 at T=402 (the tube embedder), B3/B4 at (201, 8), batched
+planning's embedder, and the training path's batch-16 shapes
+(:data:`TRAIN_CORE_SHAPES`, :data:`TRAIN_STACK_SHAPES`) against their
+plain versions.
 
 Exits non-zero on any failure, and when no CUDA device is present.
 """
 
 import bisect
 import collections
+import contextlib
+import copy
 import http.client
 import json
 import os
@@ -80,6 +97,9 @@ import numpy as np
 import torch
 
 from paule_tpu_torch import experiments as X
+from paule_tpu_torch import models as TM
+from paule_tpu_torch import pretrain as PT
+from paule_tpu_torch import release as REL
 from paule_tpu_torch import serve as S
 from paule_tpu_torch import synth
 from paule_tpu_torch.__main__ import main as cli_main
@@ -87,10 +107,12 @@ from paule_tpu_torch.api import Paule
 from paule_tpu_torch.dsp import audio as audio_io
 from paule_tpu_torch.dsp.griffinlim import mel_to_sig
 from paule_tpu_torch.dsp.targets import audio_target_to_mel
+from paule_tpu_torch.models.blocks import init_random
 from paule_tpu_torch.ops import lstm_kernels as K
 from paule_tpu_torch.ops.normalize import inv_normalize_cp
 from paule_tpu_torch.parallel import batched as TB
 from paule_tpu_torch.tools import kernel_ceiling_probes as P
+from paule_tpu_torch.tools import train_release_weights as R
 from paule_tpu_torch.tools.timing import (bound_ms, cuda_ms, cudnn_lstm_ms,
                                           lstm_bwd_bound, lstm_fwd_bound)
 
@@ -103,6 +125,10 @@ H_TUBE = 360
 #: in another order drift by a few ulps per step
 FWD_ATOL = P.FWD_ATOL
 GRAD_RTOL = P.GRAD_RTOL
+#: (T, H) at batch 16 of the training path's B1/B2 and B3/B4 launches,
+#: held against the plain versions and timed (``main``)
+TRAIN_CORE_SHAPES = ((200, H), (100, H), (200, H_TUBE), (100, 200))
+TRAIN_STACK_SHAPES = ((60, H), (120, H), (100, 180), (100, 200))
 #: a short plan in float32 on the card against float64 on the CPU: the
 #: losses (planned, produced and, with continue-learning, the models'
 #: training losses), relative
@@ -674,11 +700,12 @@ TUBE_SERIES = ("prod_tube_loss_steps", "pred_tube_mel_loss_steps",
 TUBE_MODEL_LOSSES = ("tube_model_loss", "tube_mel_model_loss")
 
 
-def launches_by_shape(fn):
-    """Run ``fn()`` and count the LSTM kernels' launches in it by kernel
-    and ``(T, B, H)``, from the arguments each wrapper hands the library
-    (the wrappers' own counts are untouched).  -> (fn's result, {(kernel,
-    T, B, H): launches})."""
+@contextlib.contextmanager
+def shape_tally():
+    """Inside the block, count the LSTM kernels' launches by kernel and
+    ``(T, B, H)``, from the arguments each wrapper hands the library (the
+    wrappers' own counts are untouched).  -> the Counter of {(kernel, T, B,
+    H): launches}."""
     tally = collections.Counter()
     launch = K._launch
 
@@ -688,9 +715,17 @@ def launches_by_shape(fn):
 
     K._launch = counted
     try:
-        return fn(), dict(sorted(tally.items()))
+        yield tally
     finally:
         K._launch = launch
+
+
+def launches_by_shape(fn):
+    """Run ``fn()`` inside :func:`shape_tally`.  -> (fn's result,
+    {(kernel, T, B, H): launches})."""
+    with shape_tally() as tally:
+        out = fn()
+    return out, dict(sorted(tally.items()))
 
 
 def drive_somatosensory(target, main_launches, main_times):
@@ -1175,6 +1210,250 @@ def drive_cli():
     return ok
 
 
+#: the training path's corpus: 4 lexicon classes of 18 variants (16 for
+#: training, all of one length: 4 full batches of 16 an epoch) and 100
+#: babbled utterances (83 for training, 4 lengths), 2 epochs a stage and a
+#: generator step every 2 critic steps, at the release's widths and batch
+PRETRAIN = dict(classes=4, variants=18, babble=100, n_critic=2)
+PRETRAIN_EPOCHS = 2
+#: least Adam steps a stage takes in the run: 4 a model and epoch
+#: (the tube stage trains 3 models; a GAN stage counts its critic steps)
+PRETRAIN_MIN_STEPS = {"tube": 3 * 4 * PRETRAIN_EPOCHS}
+
+
+def pretrain_cfg(**kw):
+    cfg = R.settings({})
+    cfg.update(PRETRAIN, **kw)
+    cfg["epochs"] = dict.fromkeys(cfg["epochs"], PRETRAIN_EPOCHS)
+    return cfg
+
+
+def tree_leaves(tree):
+    """The array leaves of a parameter tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [np.asarray(tree)]
+
+
+def _changed(a, b):
+    return any(not np.array_equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def drive_pretrain(tmp):
+    """The training path: the port's release recipe
+    (``paule_tpu_torch.tools.train_release_weights.run``) at the release's
+    widths and batch 16 on :data:`PRETRAIN`'s corpus, writing the release
+    to ``tmp``.  Per stage: wall time, Adam steps, ms per step, first and
+    last loss, and B1-B4 launches by (T, B, H); one more forward stage
+    traced for the device-busy share.  Checks finite losses, the steps per
+    stage, that every trained tree moved and each generator block's batch
+    norm statistics too, that the release loads back equal to the trained
+    trees after float16 rounding, and that a ``Paule`` built from it plans.
+    -> (ok, {(kernel, T, B, H): launches} of the whole run)."""
+    stage_shapes, stage_counts = {}, {}
+
+    @contextlib.contextmanager
+    def observe(name):
+        K.reset_launch_counts()
+        with shape_tally() as tally:
+            yield
+        stage_shapes[name] = dict(sorted(tally.items()))
+        stage_counts[name] = counts()
+
+    out = os.path.join(tmp, "release.npz")
+    t0 = time.perf_counter()
+    modules, ctx, report = R.run(out, device="cuda", cfg=pretrain_cfg(),
+                                 observe=observe, log=lambda _line: None)
+    wall = time.perf_counter() - t0
+    ok = True
+    print(f"release recipe at full width, batch 16: {wall:.3f} s in all "
+          f"(corpus {report['corpus']})")
+    total = collections.Counter()
+    for rep in report["stages"]:
+        name = rep["stage"]
+        total.update(stage_shapes[name])
+        gen_steps = rep.get("generator_steps", 0)
+        steps = rep["adam_steps"] - gen_steps
+        print(f"  {name}: {rep['seconds']:.3f} s, {rep['adam_steps']} Adam "
+              f"steps ({gen_steps} of them the generator's), "
+              f"{rep['ms_per_step'] or float('nan'):.2f} ms per step; loss first "
+              f"{rep['first_loss']} last {rep['last_loss']}; launches "
+              f"{stage_counts[name]}; by kernel and (T, B, H): " + ", ".join(
+                  f"{k[0]} {k[1:]} {n}" for k, n in stage_shapes[name].items()))
+        losses = np.array([rep["first_loss"], rep["last_loss"]], float)
+        if not np.isfinite(losses).all():
+            print(f"training path: {name}: non-finite loss", file=sys.stderr)
+            ok = False
+        least = PRETRAIN_MIN_STEPS.get(name, 4 * PRETRAIN_EPOCHS)
+        if steps < least or (name.endswith("_gan") and gen_steps < 2):
+            print(f"training path: {name}: {steps} steps, {gen_steps} of the "
+                  f"generator; expected >= {least} (and >= 2)",
+                  file=sys.stderr)
+            ok = False
+    for key, module in modules.items():
+        if not _changed(REL.params_to_jax(module), ctx.initial[key]):
+            print(f"training path: {key} did not change", file=sys.stderr)
+            ok = False
+    for key in ("cp_gan", "mel_gan"):
+        for i, block in enumerate(modules[key].blocks):
+            stats = [block.bn.mean.cpu().numpy(), block.bn.var.cpu().numpy()]
+            before = ctx.initial[key]["blocks"][i]["bn"]
+            if (not all(np.isfinite(x).all() for x in stats)
+                    or np.array_equal(stats[0], before["mean"])
+                    or np.array_equal(stats[1], before["var"])):
+                print(f"training path: {key} block {i}: batch-norm "
+                      "statistics unchanged or not finite", file=sys.stderr)
+                ok = False
+    loaded, meta = REL.load_release(out)
+    same = all(
+        all(np.array_equal(a, b.astype(np.float16)) for a, b in zip(
+            tree_leaves(loaded[key]),
+            tree_leaves(REL.params_to_jax(modules[key]))))
+        for key in REL.MODEL_KEYS)
+    print(f"  release {os.path.getsize(out) / 1e6:.1f} MB, models "
+          f"{meta['models']}, trained on {meta['trained_on']!r}; equal to "
+          f"the trained trees after float16 rounding: {same}")
+    ok = ok and same and meta["models"] == sorted(REL.MODEL_KEYS)
+    paule = Paule(device="cuda", seed=7, pred_model=loaded["predictive"],
+                  inv_model=loaded["inverse"], embedder=loaded["embedder"],
+                  cp_gen_model=loaded["cp_gan"],
+                  mel_gen_model=loaded["mel_gan"])
+    try:
+        r = paule.plan_resynth(
+            target_acoustic=synth_target(42, seed=1), n_outer=1, n_inner=4,
+            log_ii=1, continue_learning=False, verbose=False)
+    finally:
+        paule.close()
+    planned = np.array(r.planned_loss_steps + r.prod_loss_steps)
+    print(f"  Paule from the release: planned_loss_steps "
+          f"{np.round(r.planned_loss_steps, 5).tolist()}, prod_loss_steps "
+          f"{np.round(r.prod_loss_steps, 5).tolist()}")
+    if len(r.planned_loss_steps) != 4 or not np.isfinite(planned).all():
+        print("training path: the release's Paule gave bad losses",
+              file=sys.stderr)
+        ok = False
+    forward = report["stages"][0]
+    print("  device-busy share of the forward stage (one more, traced):")
+    device_busy_share(
+        lambda: R.run_stage(ctx, "forward", R.stage_forward, ctx.data),
+        {"forward": forward["seconds"]}, scope="train_release_weights")
+    launches = collections.Counter()
+    for c in stage_counts.values():
+        launches.update(c)
+    print(f"  launches during the recipe's stages: {dict(launches)}")
+    if not all(launches[k.__name__] for k in K.KERNELS):
+        print("training path: a kernel was not launched", file=sys.stderr)
+        ok = False
+    return ok, dict(sorted(total.items()))
+
+
+def drive_zoo(dev):
+    """One Adam step of each zoo model that only the training slice has,
+    at batch 16 and T=100 on the card: ``SemVecToCpModel`` and
+    ``SemVecToMelModel`` (4 layers at H=180: B3/B4 twice), and
+    ``LSTMCritic`` and ``LSTMGenerator`` (H=200) in training (dropout 0.5,
+    masks drawn on the card: B1/B2 per layer) and in eval (B3/B4).  ->
+    (ok, {(kernel, T, B, H): launches})."""
+    gen = torch.Generator().manual_seed(3)
+    drop = torch.Generator(device=dev).manual_seed(3)
+    b, t = 16, 100
+    x300 = _normal(gen, (b, t, 300), 0.5, dev)
+    vec = _normal(gen, (b, 300), 0.3, dev)
+    noise = _normal(gen, (b, t, 60), 1.0, dev)
+    x30 = _normal(gen, (b, t, 30), 0.5, dev)
+    cases = [
+        ("SemVecToCpModel", TM.SemVecToCpModel(), lambda m: m(x300), True),
+        ("SemVecToMelModel", TM.SemVecToMelModel(), lambda m: m(x300), True),
+    ]
+    for training in (True, False):
+        kw = {"generator": drop} if training else {}
+        cases += [
+            (f"LSTMCritic train={training}", TM.LSTMCritic(),
+             lambda m, kw=kw: m(x30, None, vec, **kw), training),
+            (f"LSTMGenerator train={training}", TM.LSTMGenerator(),
+             lambda m, kw=kw: m(noise, None, vec, **kw), training)]
+    ok = True
+    K.reset_launch_counts()
+    with shape_tally() as tally:
+        for name, model, call, training in cases:
+            init_random(model.to(dev), gen).train(training)
+            opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+            before = [p.detach().clone() for p in model.parameters()]
+            loss = call(model).pow(2).mean()
+            loss.backward()
+            opt.step()
+            loss = float(loss.detach())
+            moved = any(not torch.equal(p, q)
+                        for p, q in zip(model.parameters(), before))
+            ok = ok and np.isfinite(loss) and moved
+            print(f"  {name}: loss {loss:.6f}, parameters moved: "
+                  f"{moved}")
+    shapes = dict(sorted(tally.items()))
+    print(f"  launches {counts()}; by kernel and (T, B, H): " + ", ".join(
+        f"{k[0]} {k[1:]} {n}" for k, n in shapes.items()))
+    if not ok or not all(counts().values()):
+        print("zoo: a non-finite loss, a model that did not move or a kernel "
+              "not launched", file=sys.stderr)
+        ok = False
+    return ok, shapes
+
+
+def check_pretrain_against_cpu():
+    """The same training on the card (float32) and on the CPU (float64),
+    from the same initial parameters and corpus (2 classes of 18 variants:
+    2 full batches of 16 an epoch): two epochs of ``train_forward`` and
+    one of ``train_embedder`` at the release's widths, and one epoch of
+    ``train_gan`` (``Generator()`` + ``Critic()``, a generator step after
+    every critic step) with the random draws made on the CPU and handed to
+    both through ``draw``.  Per-epoch losses agree within
+    :data:`PLAN_RTOL`."""
+    data = R.splits(R.build_corpus(pretrain_cfg(classes=2, babble=0),
+                                   "cuda"))["lex_train"]
+    init = torch.Generator().manual_seed(11)
+    f64 = dict(dtype=torch.float64)
+    models = {
+        "forward": init_random(TM.ForwardModel(num_lstm_layers=1,
+                                                 hidden_size=720).to(**f64),
+                                 init),
+        "embedder": init_random(TM.EmbeddingModel(
+            num_lstm_layers=2, hidden_size=720).to(**f64), init),
+        "generator": init_random(TM.Generator().to(**f64), init),
+        "critic": init_random(TM.Critic().to(**f64), init)}
+
+    def draws():
+        gen = torch.Generator().manual_seed(5)
+
+        def draw(what, shape):
+            sample = torch.rand if what == "eps" else torch.randn
+            return sample(shape, generator=gen, dtype=torch.float64)
+        return draw
+
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        m = {k: copy.deepcopy(v).to(device=dev, dtype=dtype)
+             for k, v in models.items()}
+        fit = dict(batch_size=16, exact_batch_only=True)
+        _f, fwd = PT.train_forward(m["forward"], data, n_epochs=2, **fit)
+        _e, emb = PT.train_embedder(m["embedder"], data, n_epochs=1, **fit)
+        _g, _c, gan = PT.train_gan(m["generator"], m["critic"], data,
+                                   n_epochs=1, n_critic=1, draw=draws(),
+                                   **fit)
+        out[dev] = {"train_forward": np.array(fwd),
+                    "train_embedder": np.array(emb),
+                    "train_gan": np.array(gan)}
+    errs = rel_errs(out, tuple(out["cpu"]))
+    err = max(errs.values())
+    print(f"training, card f32 vs CPU f64 (batch 16, full width): max rel err "
+          f"{err:.3e} (tol {PLAN_RTOL}); per series " + ", ".join(
+              f"{s} {e:.1e}" for s, e in errs.items()) + "; card losses "
+          + ", ".join(f"{s} {np.round(v, 6).tolist()}"
+                      for s, v in out["cuda"].items()))
+    return err <= PLAN_RTOL
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1215,16 +1494,33 @@ def main():
         ok_tube = ok_tube and ok_t
     ok_t1, tstack1 = check_stack2(dev, gen, 402, 1)
     ok_t24, tstack24 = check_stack2(dev, gen, 402, 24)
+    # the training path (the release recipe at batch 16): B1/B2 at the
+    # forward model's longest cp length, the inverse model's longest mel
+    # length (and the embedder-free cp lengths), the tube models (H=360)
+    # and the zoo's LSTMCritic/LSTMGenerator in training (H=200); B3/B4 at
+    # the embedder's and the tube embedder's longest lengths, the zoo's
+    # SemVecTo* pairs (H=180) and LSTM* in eval (H=200)
+    train_core, train_stack, ok_train = {}, {}, True
+    for seq, hidden in TRAIN_CORE_SHAPES:
+        ok_t, train_core[(seq, hidden)] = check_core(dev, gen, seq, 16,
+                                                     hidden)
+        ok_train = ok_train and ok_t
+    for seq, hidden in TRAIN_STACK_SHAPES:
+        ok_t, train_stack[(seq, hidden)] = check_stack2(dev, gen, seq, 16,
+                                                        hidden)
+        ok_train = ok_train and ok_t
     ok_edges = check_edges(dev, gen)
     ok_one = check_one_kernel_per_call(dev, gen)
     ok = (ok_c and ok_c8 and ok_s1 and ok_s4 and ok_s24 and ok_s8 and ok_ci8
-          and ok_tube and ok_t1 and ok_t24 and ok_edges and ok_one)
+          and ok_tube and ok_t1 and ok_t24 and ok_train and ok_edges
+          and ok_one)
     results = {**core, **stack}
     for name in core:
-        merge_errors(name, results, core8, core_inv8, *tube.values())
+        merge_errors(name, results, core8, core_inv8, *tube.values(),
+                     *train_core.values())
     for name in stack:
         merge_errors(name, results, stack4, stack24, stack8, tstack1,
-                     tstack24)
+                     tstack24, *train_stack.values())
     print_times("", results)
     print_times(" T=402 B=8", core8)
     print_times(" T=201 B=8", core_inv8)
@@ -1235,6 +1531,8 @@ def main():
         print_times(f" T=402 B={batch} H={H_TUBE}", res)
     print_times(" T=402 B=1", tstack1)
     print_times(" T=402 B=24", tstack24)
+    for (seq, hidden), res in [*train_core.items(), *train_stack.items()]:
+        print_times(f" T={seq} B=16 H={hidden}", res)
 
     print("ceiling probes:")
     ok_p, probe, probe_launches = run_probes()
@@ -1267,14 +1565,21 @@ def main():
     ok_som, _shapes = drive_somatosensory(target, launches, main_times)
     print("speech-classifier path:")
     ok_sc = drive_speech_classifier(target)
+    print("training path:")
+    with tempfile.TemporaryDirectory() as tmp:
+        ok_pre, _pre_shapes = drive_pretrain(tmp)
+    print("model zoo, one Adam step each:")
+    ok_zoo, _zoo_shapes = drive_zoo(dev)
     ok_cpu = check_against_cpu(False)
     ok_cpu_cl = check_against_cpu(True)
     ok_cpu_sem = check_semvec_against_cpu()
     ok_cpu_som = check_against_cpu(True, somatosensory=True)
     ok_cpu_bat = check_batched_against_cpu()
+    ok_cpu_pre = check_pretrain_against_cpu()
     ok = (ok and ok_p and ok_plan and ok_cl and ok_sem and ok_som and ok_sc
-          and ok_bat and ok_it and ok_srv and ok_cli and ok_cpu and ok_cpu_cl
-          and ok_cpu_sem and ok_cpu_som and ok_cpu_bat)
+          and ok_bat and ok_it and ok_srv and ok_cli and ok_pre and ok_zoo
+          and ok_cpu and ok_cpu_cl and ok_cpu_sem and ok_cpu_som
+          and ok_cpu_bat and ok_cpu_pre)
 
     kernels = []
     for k in K.KERNELS:

@@ -6,11 +6,13 @@
     python -m paule_tpu_torch corpus --data-dir corpus/ --save-dir out/
     python -m paule_tpu_torch corpus --data-dir corpus/ --save-dir out/ \\
         --batched 8
+    python -m paule_tpu_torch babble --n 100 --out babble.pkl
 
-The model runs on the card (``--device cuda``, the default, which fails
-without one) or, with ``--device cpu``, on the CPU.  ``babble``, ``synth``,
-``seg2wav``, ``speaker-import`` and ``plan --visualize`` are not ported
-yet: they exit with an error naming their ROADMAP.md item and run nothing.
+The model (and ``babble``'s log-mels) runs on the card (``--device cuda``,
+the default, which fails without one) or, with ``--device cpu``, on the
+CPU.  ``synth``, ``seg2wav``, ``speaker-import`` and ``plan --visualize``
+are not ported yet: they exit with an error naming their ROADMAP.md item
+and run nothing.
 """
 
 import argparse
@@ -156,6 +158,21 @@ def _corpus_batched(args, model, files):
           f"final prod loss mean {sum(losses) / len(losses):.4f}")
 
 
+def cmd_babble(args):
+    """A motor-babbling corpus, pickled as the JAX package's ``babble``
+    writes it: a pandas DataFrame (pandas is needed here only)."""
+    import pandas as pd
+
+    from . import pretrain
+
+    corpus = pretrain.babble_corpus(
+        args.n, seq_len=(args.min_len, args.max_len), seed=args.seed,
+        n_workers=args.workers, device=args.device)
+    df = pd.DataFrame(corpus)
+    df.to_pickle(args.out, protocol=4)
+    print(f"wrote {len(df)} babbled utterances to {args.out}")
+
+
 def _not_ported(what, needs):
     def fn(_args):
         raise SystemExit(NOT_PORTED.format(what=what, needs=needs))
@@ -194,7 +211,9 @@ def build_parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--out", required=True)
-    p.set_defaults(fn=_not_ported("babble", "paule_tpu/pretrain.py"))
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the log-mels (default: cuda)")
+    p.set_defaults(fn=cmd_babble)
 
     p = sub.add_parser("synth", help="synthesize a cp trajectory file")
     p.add_argument("--cps", required=True,

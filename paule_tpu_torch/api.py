@@ -46,7 +46,7 @@ from .models.forward import ForwardModel
 from .models.generative import Generator
 from .models.inverse import InverseModelMelTimeSmoothResidual
 from .ops import losses as L
-from .ops.normalize import inv_normalize_cp, normalize_mel, normalize_tube
+from .ops.normalize import inv_normalize_cp, normalize_mel
 from .planning import engine
 from .planning.engine import (MEL_WEIGHT, SEMANTIC_WEIGHT,
                               SPEECH_CLASSIFIER_WEIGHT, TUBE_MEL_WEIGHT,
@@ -89,18 +89,6 @@ def _phase(timings, name, scope="plan_resynth"):
 
 def _np(t):
     return t.detach().cpu().numpy().astype(np.float64)
-
-
-def _tube_features(tube_info):
-    """A synthesizer's ``tube_info`` -> the normalised tube ``(T, 10)``:
-    the 7 oral-cavity areas, incisor position, tongue-tip side elevation
-    and velum opening (``paule_tpu/api.py:595-602``)."""
-    area = synth.get_area_info_within_oral_cavity(
-        tube_info["tube_length_cm"], tube_info["tube_area_cm2"])
-    return normalize_tube(np.concatenate(
-        [area, tube_info["incisor_pos_cm"][:, None],
-         tube_info["tongue_tip_side_elevation"][:, None],
-         tube_info["velum_opening_cm2"][:, None]], axis=1))
 
 
 class Paule:
@@ -389,7 +377,7 @@ class Paule:
         if self.use_somatosensory_feedback:
             sig, sr, tube_info = self.plant.speak_and_extract_tube_information(
                 cps)
-            tube = _tube_features(tube_info)
+            tube = synth.tube_features(tube_info)
         else:
             sig, sr = self.plant.speak(cps)
         if not np.isfinite(sig).all():
@@ -436,7 +424,7 @@ class Paule:
                 tube = None
                 bad = errors[i] != 0 or not np.isfinite(sig).all()
                 if not bad and somato:
-                    tube = _tube_features(infos[i])
+                    tube = synth.tube_features(infos[i])
                     bad = not np.isfinite(tube).all()
                 if bad:
                     why = f"error code {int(errors[i])}"

@@ -81,8 +81,8 @@ def init_random(module, generator):
     """Seeded random initialisation of the linear, convolution and LSTM
     blocks of ``module``, with the bounds of the JAX package's initialisers
     (``paule_tpu/models/blocks.py:25-50``, ``paule_tpu/ops/lstm.py:56-67``);
-    batch norm keeps the identity it is made with.  The values are the
-    port's own: they cannot equal JAX's."""
+    the norms get the identity the JAX package gives them.  The values are
+    the port's own: they cannot equal JAX's."""
     for m in module.modules():
         if hasattr(m, "init_random"):
             m.init_random(generator)
@@ -126,9 +126,19 @@ class Conv1d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode batch norm: parameters ``scale`` and ``bias``,
+    """Batch norm over ``(B, T, C)``: parameters ``scale`` and ``bias``,
     buffers ``mean`` and ``var`` (the running statistics), each
-    ``(channels,)``, named as the JAX tree names them."""
+    ``(channels,)``, named as the JAX tree names them.
+
+    In ``eval()`` mode it normalises with the running statistics.  In
+    ``train()`` mode it normalises with the batch's, the biased variance
+    over batch and time, and updates the buffers in place with momentum
+    0.1 and the unbiased variance: torch ``BatchNorm1d``'s rule, which the
+    JAX package reproduces functionally (``paule_tpu/models/blocks.py``
+    ``batchnorm_new_stats``) and adopts after every train-mode forward
+    (``paule_tpu/pretrain.py`` ``_adopt_bn_stats``)."""
+
+    MOMENTUM = 0.1
 
     def __init__(self, channels):
         super().__init__()
@@ -138,7 +148,62 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x):
-        return batchnorm(x, self.scale, self.bias, self.mean, self.var)
+        if not self.training:
+            return batchnorm(x, self.scale, self.bias, self.mean, self.var)
+        mean = x.mean(dim=(0, 1))
+        var = x.var(dim=(0, 1), correction=0)
+        n = x.shape[0] * x.shape[1]
+        m = self.MOMENTUM
+        with torch.no_grad():
+            self.mean.copy_((1.0 - m) * self.mean + m * mean)
+            self.var.copy_((1.0 - m) * self.var
+                           + m * (var * (n / max(n - 1, 1))))
+        return batchnorm(x, self.scale, self.bias, mean, var)
+
+    def init_random(self, generator):
+        """The identity the JAX package initialises it with."""
+        del generator
+        with torch.no_grad():
+            for t, v in ((self.scale, 1.0), (self.bias, 0.0),
+                         (self.mean, 0.0), (self.var, 1.0)):
+                t.fill_(v)
+
+
+class _Norm(nn.Module):
+    """``scale`` and ``bias`` per feature, normalising over ``dim``."""
+
+    dim = None
+
+    def __init__(self, features):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        mean = x.mean(dim=self.dim, keepdim=True)
+        var = x.var(dim=self.dim, keepdim=True, correction=0)
+        return (x - mean) * torch.rsqrt(var + 1e-5) * self.scale + self.bias
+
+    def init_random(self, generator):
+        """The identity the JAX package initialises it with."""
+        del generator
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.fill_(0.0)
+
+
+class InstanceNorm(_Norm):
+    """Instance norm over ``(B, T, C)``: per sample and channel over time,
+    biased variance (``paule_tpu/models/blocks.py`` ``instancenorm``)."""
+
+    dim = 1
+
+
+class LayerNorm(_Norm):
+    """Layer norm over the last axis (``paule_tpu/models/blocks.py``
+    ``layernorm``)."""
+
+    dim = -1
 
 
 class LSTMLayer(nn.Module):
@@ -201,3 +266,26 @@ class MelChannelConv(nn.Module):
         xs.append(F.pad(x, (0, 1))[:, :, 1:])
         outs = [conv(xi) for conv, xi in zip(self.convs, xs)]
         return torch.stack(outs, dim=-1).reshape(b, t, c)
+
+
+class TimeConvInceptionBlock(nn.Module):
+    """Parallel time convolutions of widths 1, 3 and 5 (the last two
+    channelwise), interleaved per source channel ``[o1_i, o3_i, o5_i]`` and
+    combined by a grouped width-1 convolution, with a residual connection
+    (``paule_tpu/models/blocks.py`` ``time_conv_inception_block``)."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.channels = channels
+        self.conv1 = Conv1d(channels, channels, 1)
+        self.conv3 = Conv1d(channels, channels, 3, groups=channels)
+        self.conv5 = Conv1d(channels, channels, 5, groups=channels)
+        self.combine = Conv1d(3 * channels, channels, 1, groups=channels)
+
+    def forward(self, x, activation=None, add_resid=True):
+        out = x if activation is None else activation(x)
+        o1, o3, o5 = self.conv1(out), self.conv3(out), self.conv5(out)
+        b, t, c = o1.shape
+        out = self.combine(torch.stack([o1, o3, o5], dim=-1).reshape(
+            b, t, 3 * c))
+        return out + x if add_resid else out

@@ -1,14 +1,15 @@
 """Reference (torch) checkpoints -> parameter trees in the JAX package's
 layout, which :func:`paule_tpu_torch.release.load_into` takes (the port's
-own copy of ``paule_tpu/models/torch_convert.py:24-157``, for the kinds the
-port has: forward, inverse, embedder, generator, linear classifier).
+own copy of ``paule_tpu/models/torch_convert.py:24-157``: forward, inverse,
+embedder, generator, critic, linear classifier).
 
 * linear:  torch ``weight (out, in)``      -> ``w (in, out)``
 * conv1d:  torch ``weight (out, in/g, k)`` -> ``w (k, in/g, out)``
 * LSTM:    torch ``weight_ih_l{i} (4H, in)`` -> ``w_ih (in, 4H)``, the two
   biases summed into one ``b (4H,)``; gate order i, f, g, o in both
 * batch norm: ``weight``, ``bias``, ``running_mean``, ``running_var`` ->
-  ``scale``, ``bias``, ``mean``, ``var``
+  ``scale``, ``bias``, ``mean``, ``var``; instance norm: ``weight``,
+  ``bias`` -> ``scale``, ``bias``
 
 Leaves are numpy arrays in the file's dtype.
 """
@@ -44,6 +45,11 @@ def t_batchnorm(sd, prefix):
             "bias": _np(sd[f"{prefix}.bias"]).copy(),
             "mean": _np(sd[f"{prefix}.running_mean"]).copy(),
             "var": _np(sd[f"{prefix}.running_var"]).copy()}
+
+
+def t_instancenorm(sd, prefix):
+    return {"scale": _np(sd[f"{prefix}.weight"]).copy(),
+            "bias": _np(sd[f"{prefix}.bias"]).copy()}
 
 
 def _count(sd, pattern):
@@ -103,6 +109,17 @@ def convert_generator(sd):
     }
 
 
+def convert_critic(sd):
+    return {
+        "inital_linear": t_linear(sd, "inital_linear"),
+        "blocks": [
+            {"conv": t_conv1d(sd, f"res_blocks.{i}.0"),
+             "in_norm": t_instancenorm(sd, f"res_blocks.{i}.1")}
+            for i in range(_count(sd, "res_blocks.{}."))
+        ],
+    }
+
+
 def convert_linear_classifier(sd):
     return {"linear": t_linear(sd, "linear")}
 
@@ -113,6 +130,7 @@ CONVERTERS = {
     "inverse": convert_inverse_model,
     "embedder": convert_embedding_model,
     "generator": convert_generator,
+    "critic": convert_critic,
     "linear_classifier": convert_linear_classifier,
 }
 

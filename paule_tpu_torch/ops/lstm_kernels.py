@@ -31,6 +31,7 @@ import collections
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .cuda_build import CudaLibrary, check_tensor as _check
 
@@ -427,6 +428,25 @@ def reset_launch_counts():
 # autograd contracts (the JAX custom_vjp rules of pallas_lstm.py)
 # ---------------------------------------------------------------------------
 
+def first_order_only(backward):
+    """``once_differentiable`` for the kernels' backward, which also raises
+    as soon as it runs under ``create_graph=True``: B2 and B4 return no
+    graph, and ``once_differentiable`` alone would drop the second-order
+    terms silently when the incoming gradient carries no graph of its
+    own."""
+    inner = once_differentiable(backward)
+
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "trying to differentiate twice through the LSTM kernels "
+                "(create_graph=True): their backward (B2, B4) is "
+                "differentiable once")
+        return inner(ctx, *grads)
+    return wrapper
+
+
 def _shift(first, seq):
     """``[first, seq[:-1]]`` along time: the previous step's states."""
     return torch.cat([first[None], seq[:-1]], dim=0)
@@ -435,7 +455,10 @@ def _shift(first, seq):
 class LSTMCore(torch.autograd.Function):
     """``(gates_x, w_hh, h0, c0) -> (hs, cs)``.  Gradients through ``hs``
     are exact; the cotangent of ``cs`` is ignored (``lstm_core``,
-    ``pallas_lstm.py:203-210``)."""
+    ``pallas_lstm.py:203-210``).  The backward runs B2, whose outputs carry
+    no graph, so it is differentiable once: a second-order gradient (a
+    WGAN-GP penalty through an LSTM critic) raises, on the card and on the
+    CPU alike, where the JAX scan path would take it."""
 
     @staticmethod
     def forward(ctx, gates_x, w_hh, h0, c0):
@@ -444,6 +467,7 @@ class LSTMCore(torch.autograd.Function):
         return hs, cs
 
     @staticmethod
+    @first_order_only
     def backward(ctx, ghs, _gcs):
         gates_x, w_hh, h0, c0, hs, cs = ctx.saved_tensors
         hidden = w_hh.shape[0]
@@ -459,7 +483,8 @@ class LSTMCore(torch.autograd.Function):
 class LSTMStack2(torch.autograd.Function):
     """``(gates1, w_hh1, w2, b2, h01, c01, h02, c02) -> (hs1, cs1, hs2,
     cs2)``.  Gradients flow only through ``hs2``; the initial-carry grads
-    are zeros (``lstm_stack2_core``, ``pallas_lstm.py:540-551, 672-674``)."""
+    are zeros (``lstm_stack2_core``, ``pallas_lstm.py:540-551, 672-674``).
+    Differentiable once, as :class:`LSTMCore`."""
 
     @staticmethod
     def forward(ctx, gates1, w_hh1, w2, b2, h01, c01, h02, c02):
@@ -470,6 +495,7 @@ class LSTMStack2(torch.autograd.Function):
         return hs1, cs1, hs2, cs2
 
     @staticmethod
+    @first_order_only
     def backward(ctx, _ghs1, _gcs1, ghs2, _gcs2):
         (gates1, w_hh1, w2, b2, hs1, cs1, hs2, cs2,
          h01, c01, h02, c02) = ctx.saved_tensors

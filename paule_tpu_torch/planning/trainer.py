@@ -125,30 +125,38 @@ class ModelTrainer:
         return loss.detach()
 
 
-def train_epochs(trainer, inps, tgts, *, batch_size, n_epochs, rng=random):
+def train_epochs(trainer, inps, tgts, *, batch_size, n_epochs, rng=random,
+                 exact_batch_only=False, progress=None):
     """Train for ``n_epochs`` with same-size batching; -> per-epoch mean
-    losses (one host sync, at the end).
+    losses (one host sync, at the end; ``nan`` for an epoch without a
+    batch, as ``np.mean([])`` gives in the JAX package).
 
     ``inps`` and ``tgts`` are sequences of ``(T_i, C)`` tensors on the
     trainer's device (a stacked ``(N, T, C)`` tensor is one).  All epochs'
-    batches are drawn from ``rng`` first.  When all samples have one
-    length, each epoch runs its full batches before its leftover batches,
-    as the JAX package's same-length path does
+    batches are drawn from ``rng`` first; ``exact_batch_only`` then drops
+    each epoch's short batches (``paule_tpu/planning/trainer.py:183-239``).
+    When all samples have one length, each epoch runs its full batches
+    before its leftover batches, as the JAX package's same-length path does
     (``paule_tpu/planning/trainer.py:257-301``); otherwise batches run in
-    the epoch's order, padded by repeating the last frame."""
+    the epoch's order, padded by repeating the last frame.
+    ``progress(epoch)`` is called after each epoch's steps are queued, with
+    no host sync."""
     lens = [int(x.shape[0]) for x in inps]
     length_dict = build_length_dict(lens)
     plans = [create_epoch_batches(len(lens), batch_size,
                                   same_size_batching=True,
                                   training_length_dict=length_dict, rng=rng)
              for _ in range(n_epochs)]
+    if exact_batch_only:
+        plans = [[b for b in batches if len(b) == batch_size]
+                 for batches in plans]
     same_len = (len(set(lens)) == 1
                 and len({int(y.shape[0]) for y in tgts}) == 1)
     if same_len:
         all_in = inps if torch.is_tensor(inps) else torch.stack(list(inps))
         all_out = tgts if torch.is_tensor(tgts) else torch.stack(list(tgts))
     epoch_losses = []
-    for batches in plans:
+    for epoch, batches in enumerate(plans):
         if same_len:
             batches = ([b for b in batches if len(b) == batch_size]
                        + [b for b in batches if len(b) != batch_size])
@@ -163,8 +171,19 @@ def train_epochs(trainer, inps, tgts, *, batch_size, n_epochs, rng=random):
                                  [inps[i] for i in idx])
                 b_out = pad_batch([o.shape[0] for o in outs], outs)
             losses.append(trainer.train_batch(b_in, b_out))
-        epoch_losses.append(torch.stack(losses).mean())
+        epoch_losses.append(mean_or_nan(losses, inps[0].device))
+        if progress is not None:
+            progress(epoch)
     return torch.stack(epoch_losses).tolist()
+
+
+def mean_or_nan(losses, device):
+    """The float64 mean of a list of scalar tensors on ``device``, without
+    a host sync; ``nan`` for an empty list."""
+    if not losses:
+        return torch.full((), float("nan"), dtype=torch.float64,
+                          device=device)
+    return torch.stack(losses).mean().to(torch.float64)
 
 
 class ReplayBuffer:

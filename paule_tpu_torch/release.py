@@ -1,13 +1,15 @@
-"""Reader for the in-repo pretrained-weight release, and the bridge from the
-JAX package's parameter trees to the port's modules.
+"""Reader and writer of pretrained-weight releases, and the bridge between
+the JAX package's parameter trees and the port's modules.
 
 The release ``paule_tpu/pretrained_weights/paule_tpu_release_v1.npz`` is
 data only: float16 arrays plus a JSON manifest (``__manifest__``) that
 mirrors each model's parameter tree with leaf ids at the leaves.  This is
-the port's own copy of the reader of ``paule_tpu/release.py:64-135``; the
-file is read in place.
+the port's own copy of ``paule_tpu/release.py:64-135``; the in-repo file is
+read in place and never written.  A release the port writes
+(:func:`save_release`) has the same layout, so both packages load it.
 """
 
+import hashlib
 import json
 import os
 
@@ -15,10 +17,33 @@ import numpy as np
 import torch
 
 RELEASE_VERSION = "v1"
-RELEASE_PATH = os.path.join(
+RELEASE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "paule_tpu", "pretrained_weights",
-    f"paule_tpu_release_{RELEASE_VERSION}.npz")
+    "paule_tpu", "pretrained_weights")
+RELEASE_PATH = os.path.join(RELEASE_DIR,
+                            f"paule_tpu_release_{RELEASE_VERSION}.npz")
+#: model keys a release may carry (``paule_tpu/release.py`` ``MODEL_KEYS``)
+MODEL_KEYS = ("predictive", "inverse", "embedder", "cp_gan", "mel_gan",
+              "speech_classifier", "cp_tube", "tube_mel", "tube_embedder")
+
+
+def _flatten(tree, prefix, arrays):
+    """A tree of dicts, lists and array leaves -> its manifest node; each
+    leaf goes into ``arrays`` under its path, floats as float16."""
+    if isinstance(tree, dict):
+        return {k: _flatten(v, f"{prefix}.{k}", arrays)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {"__list__": [_flatten(v, f"{prefix}[{i}]", arrays)
+                             for i, v in enumerate(tree)]}
+    if tree is None:
+        return {"__none__": True}
+    leaf = tree.detach().cpu().numpy() if torch.is_tensor(tree) else (
+        np.asarray(tree))
+    if np.issubdtype(leaf.dtype, np.floating):
+        leaf = leaf.astype(np.float16)
+    arrays[prefix] = leaf
+    return {"__leaf__": prefix}
 
 
 def _unflatten(node, arrays):
@@ -41,6 +66,70 @@ def load_release(path=RELEASE_PATH):
         arrays = {k: npz[k] for k in npz.files if k != "__manifest__"}
     return ({key: _unflatten(node, arrays)
              for key, node in payload["trees"].items()}, payload["meta"])
+
+
+def check_release_path(path):
+    """-> ``path`` made absolute; raises ``ValueError`` if it lies in the
+    JAX package's release directory, which the port never writes."""
+    path = os.path.abspath(path)
+    if os.path.dirname(path) == os.path.abspath(RELEASE_DIR):
+        raise ValueError(f"{path} is in the JAX package's release "
+                         f"directory {RELEASE_DIR}; write elsewhere")
+    return path
+
+
+def save_release(weights, *, path, version=RELEASE_VERSION, metadata=None):
+    """Write a release in the JAX package's layout: ``weights`` maps model
+    keys (of :data:`MODEL_KEYS`) to parameter trees in the JAX layout
+    (:func:`params_to_jax`).  ``path`` is required, and the in-repo
+    release's directory is refused.  -> ``path``."""
+    unknown = set(weights) - set(MODEL_KEYS)
+    if unknown:
+        raise ValueError(f"unknown model keys: {sorted(unknown)}")
+    path = check_release_path(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    arrays, manifest = {}, {}
+    for key, tree in weights.items():
+        manifest[key] = _flatten(tree, key, arrays)
+    meta = {"version": version, "models": sorted(weights), "format": 1,
+            **(metadata or {})}
+    arrays["__manifest__"] = np.frombuffer(
+        json.dumps({"meta": meta, "trees": manifest}).encode(),
+        dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+    return path
+
+
+def sha256(path):
+    """The SHA-256 hex digest of the file at ``path``."""
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def params_to_jax(module):
+    """The inverse of :func:`params_from_jax`: ``module``'s state dict
+    (parameters and persistent buffers) -> the JAX parameter tree, nested
+    dicts with lists where the names have list indices, of numpy
+    arrays."""
+    root = {}
+    for name, value in module.state_dict().items():
+        *path, leaf = name.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().cpu().numpy().copy()
+    return _lists(root)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        return [_lists(node[k]) for k in sorted(node, key=int)]
+    return {k: _lists(v) for k, v in node.items()}
 
 
 def params_from_jax(tree, prefix=""):

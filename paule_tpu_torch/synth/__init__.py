@@ -13,7 +13,7 @@ import threading
 import numpy as np
 
 from . import build as _build
-from ..ops.normalize import N_CP, N_TRACT
+from ..ops.normalize import N_CP, N_TRACT, normalize_tube
 
 FRAME_STEPS = 110  # samples per control frame (2.5 ms at 44.1 kHz)
 SAMPLE_RATE = 44100
@@ -171,6 +171,18 @@ def get_area_info_within_oral_cavity(tube_length, tube_area, *, cm_inside=7,
                 "calculate must be one of ['mean','binary','min']")
         out[:, j] = vals
     return out
+
+
+def tube_features(tube_info):
+    """A ``tube_info`` -> the normalised tube ``(T, 10)``: the 7
+    oral-cavity areas, incisor position, tongue-tip side elevation and
+    velum opening (``paule_tpu/api.py:595-602``)."""
+    area = get_area_info_within_oral_cavity(
+        tube_info["tube_length_cm"], tube_info["tube_area_cm2"])
+    return normalize_tube(np.concatenate(
+        [area, tube_info["incisor_pos_cm"][:, None],
+         tube_info["tongue_tip_side_elevation"][:, None],
+         tube_info["velum_opening_cm2"][:, None]], axis=1))
 
 
 class SynthPool:

@@ -1,7 +1,8 @@
 """The port's command line (``python -m paule_tpu_torch``) on the CPU:
-``plan`` and ``corpus --batched`` write their results, ``sysinfo``
-prints, the card is the default device, and the commands not ported yet
-exit with an error naming their ROADMAP.md item without running."""
+``plan`` and ``corpus --batched`` write their results, ``babble`` writes
+what the JAX package's ``babble`` writes, ``sysinfo`` prints, the card is
+the default device, and the commands not ported yet exit with an error
+naming their ROADMAP.md item without running."""
 
 import os
 import pickle
@@ -9,6 +10,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -68,6 +70,29 @@ def test_corpus_batched_writes_one_result_per_utterance(tmp_path, capsys):
     assert "nothing to plan" in capsys.readouterr().out
 
 
+def test_babble_writes_what_the_jax_command_writes(tmp_path, capsys):
+    """The same DataFrame pickle for the same seed: the trajectories bit
+    for bit, the log-mels (float32 here, float64 in the JAX package under
+    the tests' x64 mode) to float32 rounding."""
+    from paule_tpu.__main__ import main as jax_main
+
+    args = ["babble", "--n", "3", "--min-len", "20", "--max-len", "26",
+            "--seed", "4", "--workers", "2"]
+    jax_main(args + ["--out", str(tmp_path / "ref.pkl")])
+    main(args + ["--out", str(tmp_path / "out.pkl"), "--device", "cpu"])
+    assert "wrote 3 babbled utterances" in capsys.readouterr().out
+    ref = pd.read_pickle(tmp_path / "ref.pkl")
+    out = pd.read_pickle(tmp_path / "out.pkl")
+    assert list(out.columns) == list(ref.columns)
+    assert list(out["segment_data"]) == list(ref["segment_data"])
+    assert list(out["vector"]) == list(ref["vector"])
+    for a, b in zip(out["cp_norm"], ref["cp_norm"]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(out["melspec_norm_synthesized"],
+                    ref["melspec_norm_synthesized"]):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-5)
+
+
 def test_sysinfo(capsys):
     main(["sysinfo"])
     out = capsys.readouterr().out
@@ -83,7 +108,6 @@ def test_the_card_is_the_default_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,needs", [
-    (["babble", "--out", "b.pkl"], "pretrain.py"),
     (["synth", "--cps", "t.txt", "--out", "o.wav"], "read_cp"),
     (["seg2wav", "--seg", "w.seg", "--out", "o.wav"], "seg_to_cps"),
     (["speaker-import", "JD3.speaker", "-o", "jd3.ini"], "speaker_import"),
@@ -103,7 +127,8 @@ def test_unported_commands_exit_with_an_error(argv, needs, tmp_path,
 
 def test_module_entry_point_exits_non_zero():
     res = subprocess.run(
-        [sys.executable, "-m", "paule_tpu_torch", "babble", "--out", "b"],
+        [sys.executable, "-m", "paule_tpu_torch", "synth", "--cps", "t.txt",
+         "--out", "o.wav"],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
         text=True, timeout=120)
     assert res.returncode != 0 and "item 12" in res.stderr

@@ -47,7 +47,7 @@ def test_batchnorm_matches_jax():
     params = {"scale": rng.normal(size=7), "bias": rng.normal(size=7),
               "mean": rng.normal(size=7), "var": rng.uniform(0.1, 2.0, 7)}
     x = _x((3, 9, 7))
-    bn = TR.load_into(TB.BatchNorm(7), params, **F64)
+    bn = TR.load_into(TB.BatchNorm(7), params, **F64).eval()
     assert {n for n, _ in bn.named_buffers()} == {"mean", "var"}
     np.testing.assert_allclose(
         bn(torch.tensor(x)).detach().numpy(),
@@ -93,7 +93,7 @@ def test_generator_block0_residual_rule():
         jgen = JG.Generator(hidden_size=hidden, num_res_blocks=2)
         params = jgen.init(jax.random.PRNGKey(hidden), jnp.float64)
         gen = TR.load_into(Generator(hidden_size=hidden, num_res_blocks=2),
-                           jax.tree.map(np.asarray, params), **F64)
+                           jax.tree.map(np.asarray, params), **F64).eval()
         noise, semvec = _x((2, 1, 100), 3), _x((2, 300), 4)
         with torch.no_grad():
             out = gen(torch.tensor(noise), 10, torch.tensor(semvec))

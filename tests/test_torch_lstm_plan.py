@@ -22,7 +22,9 @@ F32 = 4
 SHAPES = [(720, b) for b in (1, 4, 8, 16, 24)] + [
     (hidden, batch) for hidden in (5, 8, 12, 100) for batch in (1, 3, 13)] + [
     # the somatosensory variant's cp->tube and tube->mel models
-    (360, b) for b in (1, 8, 24)]
+    (360, b) for b in (1, 8, 24)] + [
+    # the training path: batch 16 at the release widths and the zoo's
+    (360, 16), (200, 1), (200, 16), (180, 1), (180, 16)]
 
 
 def _hp(hidden):
@@ -145,6 +147,37 @@ def test_stack_plans_at_the_batched_planning_shapes(batch):
     assert (b4.blocks, b4.units, b4.chunk, b4.rows) == (132, 11, 4, 4)
     for plan in (b3, b4):
         assert K.MIN_STAGES <= plan.stages and plan.smem <= SMEM
+
+
+def test_plans_at_the_training_shapes():
+    """The training path at batch 16 on 132 SMs (no plan depends on T):
+    B1 stages all 16 rows at every width; B2 at H=720 stages 8 at a time
+    (two chunks), at H=360 all 16; B3 stages all 16 at H=720 beside a ring
+    of 6 tiles; B4 at H=720 streams both layers' weights once per chunk of
+    4 rows (four chunks); the zoo's H=180 (``SemVecTo*``) and H=200
+    (``LSTM*``) pairs run 3 and 4 units per block, the H=200 layers alone
+    2."""
+    expect = {
+        (K.fwd_plan, 720): (120, 6, 16, 16), (K.fwd_plan, 360): (120, 3, 16,
+                                                                 16),
+        (K.fwd_plan, 200): (100, 2, 16, 16),
+        (K.bwd_plan, 720): (120, 6, 8, 8), (K.bwd_plan, 360): (120, 3, 16,
+                                                               16),
+        (K.bwd_plan, 200): (100, 2, 16, 16),
+        (K.stack2_plan, 720): (132, 11, 16, 16),
+        (K.stack2_plan, 180): (120, 3, 16, 16),
+        (K.stack2_plan, 200): (100, 4, 16, 16),
+        (K.stack2_bwd_plan, 720): (132, 11, 4, 4),
+        (K.stack2_bwd_plan, 180): (120, 3, 16, 16),
+        (K.stack2_bwd_plan, 200): (100, 4, 16, 16),
+    }
+    for (plan_fn, hidden), want in expect.items():
+        plan = plan_fn(hidden, 16, N_SM, SMEM)
+        assert (plan.blocks, plan.units, plan.chunk, plan.rows) == want, (
+            plan_fn.__name__, hidden)
+        assert plan.smem <= SMEM
+    assert K.stack2_plan(720, 16, N_SM, SMEM).stages == 6
+    assert K.MIN_STAGES <= K.stack2_bwd_plan(720, 16, N_SM, SMEM).stages
 
 
 def test_large_batches_are_staged_in_chunks():

@@ -154,6 +154,42 @@ def test_train_epochs_matches_jax(lens):
     assert t_tr.steps == 3 * 3
 
 
+@pytest.mark.parametrize("lens", [[12] * 9, [12] * 5 + [8] * 4])
+def test_train_epochs_exact_batches_and_progress_match_jax(lens):
+    """``exact_batch_only`` drops each epoch's short batches after the
+    epoch's draw (the rng is consumed as without it); ``progress`` is
+    called after each epoch."""
+    j_tr, t_tr, _ = _models("forward", seed=1)
+    rng = np.random.default_rng(3)
+    inps = [rng.normal(0, 0.3, (n, 30)) for n in lens]
+    tgts = [rng.normal(0, 0.3, (n // 2, 60)) for n in lens]
+    r_ref, r_port = random.Random(7), random.Random(7)
+    ref = JT.train_epochs(j_tr, inps, tgts, np.asarray(lens), batch_size=4,
+                          n_epochs=3, rng=r_ref, dtype=np.float64,
+                          exact_batch_only=True)
+    seen = []
+    out = TT.train_epochs(t_tr, [torch.tensor(x) for x in inps],
+                          [torch.tensor(y) for y in tgts], batch_size=4,
+                          n_epochs=3, rng=r_port, exact_batch_only=True,
+                          progress=seen.append)
+    np.testing.assert_allclose(out, ref, rtol=1e-10, atol=0)
+    _assert_params_close(j_tr, t_tr)
+    assert t_tr.steps == 3 * 2
+    assert seen == [0, 1, 2]
+    assert r_ref.random() == r_port.random()
+
+
+def test_train_epochs_epoch_without_a_batch_is_nan():
+    """Every batch short of ``batch_size`` and dropped: the epoch's loss is
+    ``nan`` (``np.mean([])`` in the JAX package) and no step is taken."""
+    _j, t_tr, _ = _models("forward", seed=2)
+    x = [torch.zeros(12, 30, dtype=torch.float64)] * 3
+    y = [torch.zeros(6, 60, dtype=torch.float64)] * 3
+    out = TT.train_epochs(t_tr, x, y, batch_size=4, n_epochs=2,
+                          rng=random.Random(0), exact_batch_only=True)
+    assert np.isnan(out).all() and len(out) == 2 and t_tr.steps == 0
+
+
 def test_train_epochs_takes_a_stacked_tensor():
     _j, a, _ = _models("forward", seed=2)
     _j, b, _ = _models("forward", seed=2)
