@@ -60,14 +60,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
    planned with (``drive_pretrain``); then one Adam step of each zoo
    model that only training uses (``drive_zoo``: ``SemVecTo*`` at H=180,
    ``LSTMCritic``/``LSTMGenerator`` at H=200 in training and eval);
-9. holds short plans on the card (float32) against the CPU (float64),
+9. drives the physical path, planning through the physics
+   (``Paule(physical_forward=True)``: the differentiable spectral model of
+   ``paule_tpu_torch/spectral.py`` in place of the learned forward model,
+   the release's inverse model and embedder at H=720) at the main path's
+   budget with continue-learning of the inverse model: phase split, ms per
+   inner step, device activities per step, launches by (T, B, H) against
+   the prediction, the device-busy share, and the spectral model alone at
+   (1, 402, 30); the CLI's host commands ``synth``, ``seg2wav`` and
+   ``speaker-import`` run inside step 7's command-line phase, and
+   ``drive_zoo`` adds ``ForwardModelMelTimeSmoothResidual`` and
+   ``MelEmbeddingModelMelSmoothResidualUpsampling``;
+10. holds short plans on the card (float32) against the CPU (float64),
    without and with continue-learning, a short semvec-only plan, a short
    somatosensory plan with continue-learning (the tube embedder's dropout
    set to 0 on both sides), a short batched plan (three utterances), and
    training (``check_pretrain_against_cpu``: ``train_forward``,
    ``train_embedder`` and ``train_gan`` at full width, batch 16, the
-   GAN's draws made on the CPU for both);
-10. prints one JSON line with the kernels' numbers and, last, one JSON
+   GAN's draws made on the CPU for both), and the physical path
+   (``check_physical_against_cpu``: the spectral mel and its gradient at
+   full width, and a short plan with continue-learning);
+11. prints one JSON line with the kernels' numbers (the launches of the
+    main path's and the physical path's warm calls) and, last, one JSON
     line with the device.
 
 The kernel phase also holds B1/B2 at the somatosensory variant's H=360
@@ -111,6 +125,7 @@ from paule_tpu_torch.models.blocks import init_random
 from paule_tpu_torch.ops import lstm_kernels as K
 from paule_tpu_torch.ops.normalize import inv_normalize_cp
 from paule_tpu_torch.parallel import batched as TB
+from paule_tpu_torch.spectral import SpectralForwardModel
 from paule_tpu_torch.tools import kernel_ceiling_probes as P
 from paule_tpu_torch.tools import train_release_weights as R
 from paule_tpu_torch.tools.timing import (bound_ms, cuda_ms, cudnn_lstm_ms,
@@ -414,13 +429,15 @@ def _covered(union, a, b):
     return total
 
 
-def device_busy_share(run, untraced, scope="plan_resynth"):
+def device_busy_share(run, untraced, scope="plan_resynth", activities=None):
     """One more call of ``run()`` under ``torch.profiler``, not timed: per
     phase (the ``<scope>.<phase>`` ranges of ``paule_tpu_torch.api`` and
     ``parallel.batched``, summed over their occurrences), the seconds in
     which the card ran a kernel or a copy, as a share of the traced call's
     phase wall time and of the untraced call's (``untraced``: {phase:
-    seconds}; the profiler slows the host, not the card).  -> {phase:
+    seconds}; the profiler slows the host, not the card).  With
+    ``activities`` (a dict), also fills in per phase the number of device
+    activities (kernels and copies) that start inside it.  -> {phase:
     share of the traced wall}."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -436,11 +453,16 @@ def device_busy_share(run, untraced, scope="plan_resynth"):
         elif e.device_type == torch.autograd.DeviceType.CUDA:
             device.append(span)
     busy = _union(device)
+    starts = sorted(a for a, _b in device)
     share = {}
     for phase, spans in windows.items():
         wall = sum(b - a for a, b in spans)
         on = sum(_covered(busy, a, b) for a, b in spans)
         share[phase] = on / wall
+        if activities is not None:
+            activities[phase] = sum(
+                bisect.bisect_left(starts, b) - bisect.bisect_left(starts, a)
+                for a, b in spans)
         plain = untraced[phase]
         print(f"  {phase}: device busy {on / 1e6:.3f} s, {share[phase]:.1%} "
               f"of the traced {wall / 1e6:.3f} s, {on / 1e6 / plain:.1%} of "
@@ -836,6 +858,166 @@ def drive_speech_classifier(target):
     return ok
 
 
+#: the physical path's launches by kernel and (T, B, H) in the warm call of
+#: :func:`drive_physical` (2 x 24 inner steps, continue-learning of the
+#: inverse model): the inverse model's initialisation and its 60 training
+#: steps at batch 8; the embedder in every inner step (forward and
+#: backward), for the target, the initial and final semvecs and, at B=24,
+#: the produced metrics.  No B1/B2 at T=402: the forward model is physics.
+PHYSICAL_SHAPES = {
+    ("lstm_fwd", 201, 1, H): 1, ("lstm_fwd", 201, 8, H): 60,
+    ("lstm_bwd", 201, 8, H): 60, ("lstm_stack2_fwd", 201, 1, H): 53,
+    ("lstm_stack2_fwd", 201, 24, H): 2, ("lstm_stack2_bwd", 201, 1, H): 48}
+#: the spectral model in float32 on the card against float64 on the CPU at
+#: full width (1, 402, 30): the normalised mel absolutely, the gradient of
+#: a weighted sum of it relatively (Frobenius).  float32 against float64
+#: on the CPU gives ~1.2e-6 and ~1.4e-5; the chain product's resonances
+#: amplify rounding in 1 / |C Z + D|, and the card's complex sin/cos may
+#: round differently, so the limits leave two orders of magnitude.
+SPECTRAL_MEL_ATOL = 1e-4
+SPECTRAL_GRAD_RTOL = 1e-3
+
+
+def spectral_times(dev, cp):
+    """The spectral model alone on the card at ``cp``'s shape: ms of a
+    forward and of a forward plus backward (CUDA events over 10 calls), and
+    the device activities of one forward plus backward."""
+    model = SpectralForwardModel()
+    x = cp.detach().clone().requires_grad_(True)
+    w = torch.ones((1, cp.shape[1] // 2, 60), device=dev)
+
+    def both():
+        (model(x) * w).sum().backward()
+
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: model(x), 10)
+    fwd_bwd = cuda_ms(both, 10)
+    return fwd, fwd_bwd, len(device_kernels(both))
+
+
+def drive_physical(target, main_times):
+    """The physical path: ``Paule(physical_forward=True)`` at full width
+    (the physical forward model in place of the learned one; the release's
+    inverse model and embedder at H=720, K=513 frequencies) on the main
+    path's target and budget, ``objective="acoustic_semvec"``,
+    continue-learning of the inverse model, ``n_outer=2, n_inner=24``.
+    Called twice; the warm call's phase split, ms per inner step (beside
+    the main path's, ``main_times``) and launches per kernel and per (T,
+    B, H) (against :data:`PHYSICAL_SHAPES`) are reported, and the
+    device-busy share and device activities per inner step of a shorter
+    call (1 x 4 inner steps) traced; then the spectral model alone at
+    (1, 402, 30).  -> (ok, launches of the
+    warm call)."""
+    n_outer, n_inner = 2, 24
+    steps = n_outer * n_inner
+    kw = dict(target_acoustic=target, initialize_from="acoustic",
+              objective="acoustic_semvec", n_outer=n_outer, n_inner=n_inner,
+              log_ii=1, continue_learning=True, continue_learning_inv=True,
+              verbose=False)
+    paule = Paule(seed=7, physical_forward=True)
+    try:
+        timed_plan(paule, kw, "plan_resynth(physical_forward=True, "
+                   "continue_learning_inv=True, n_outer=2, n_inner=24, "
+                   "log_ii=1), first call")
+        inv0 = paule.inv_trainer.steps
+        (r, launches, t), shapes = launches_by_shape(
+            lambda: timed_plan(paule, kw, "  second call"))
+        inv_steps = paule.inv_trainer.steps - inv0
+        # the trace holds ~2,000 device activities per inner step, so it
+        # covers a shorter call (1 x 4 inner steps), timed untraced first
+        short = dict(kw, n_outer=1, n_inner=4)
+        _r, _l, t_short = timed_plan(paule, short, "  1 x 4 inner steps")
+        print("  device-busy share per phase (the same call, traced):")
+        acts = {}
+        busy = device_busy_share(lambda: paule.plan_resynth(**short),
+                                 t_short, activities=acts)
+    finally:
+        paule.close()
+    dev = torch.device("cuda")
+    fwd, fwd_bwd, n_dev = spectral_times(
+        dev, torch.tensor(r.planned_cp[None], dtype=torch.float32,
+                          device=dev))
+    print(f"  planning {t['planning'] / steps * 1e3:.2f} ms per inner step "
+          f"(main path {main_times['planning'] / steps * 1e3:.2f}); "
+          f"{acts.get('planning', 0) / 4:.0f} device activities per "
+          f"inner step in the traced call; continue-learning "
+          f"{t['continue_learning'] / n_outer:.3f} s per outer iteration "
+          f"({inv_steps} Adam steps of the inverse model)")
+    print(f"  spectral model alone at (1, 402, 30): forward {fwd:.3f} ms, "
+          f"forward + backward {fwd_bwd:.3f} ms, {n_dev} device activities "
+          "per forward + backward")
+    print(f"  launches during the run: {launches}")
+    print("  launches by kernel and (T, B, H): " + ", ".join(
+        f"{k[0]} {k[1:]} {n}" for k, n in shapes.items())
+        + f"; as predicted: {shapes == PHYSICAL_SHAPES}")
+    print(f"  planned_loss_steps[0, -1] {r.planned_loss_steps[0]:.6f} "
+          f"{r.planned_loss_steps[-1]:.6f}; prod_loss_steps[0, -1] "
+          f"{r.prod_loss_steps[0]:.6f} {r.prod_loss_steps[-1]:.6f}")
+    print(f"  inv_model_loss {r.inv_model_loss}")
+    print(f"  pred_model_loss {r.pred_model_loss}")
+    ok = check_losses(r, steps, 402, "physical path")
+    if (r.pred_model_loss != [] or len(r.inv_model_loss) != 10 * n_outer
+            or not np.isfinite(r.inv_model_loss).all()
+            or inv_steps != 30 * n_outer):
+        print("physical path: bad model losses or training steps",
+              file=sys.stderr)
+        ok = False
+    if any(k[1] == 402 for k in shapes) or not all(launches.values()):
+        print("physical path: a kernel launched at the forward model's "
+              "shape, or one was not launched", file=sys.stderr)
+        ok = False
+    if "planning" not in busy:
+        print("physical path: the trace shows no phase ranges",
+              file=sys.stderr)
+        ok = False
+    return ok, launches
+
+
+def check_physical_against_cpu():
+    """The physical path on the card (float32) and on the CPU (float64):
+    the spectral model's mel and the gradient of a weighted sum of it at
+    full width (1, 402, 30), within :data:`SPECTRAL_MEL_ATOL` and
+    :data:`SPECTRAL_GRAD_RTOL`; and a short ``Paule(physical_forward=True)``
+    plan with continue-learning of the inverse model, whose planned,
+    produced and training losses agree within :data:`PLAN_RTOL`."""
+    rng = np.random.default_rng(3)
+    cp = np.clip(rng.normal(0, 0.05, (1, 402, 30)).cumsum(1) * 0.2, -1, 1)
+    w = rng.normal(size=(1, 201, 60))
+    model, got = SpectralForwardModel(), {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        x = torch.tensor(cp, dtype=dtype, device=dev, requires_grad=True)
+        mel = model(x)
+        (mel * torch.tensor(w, dtype=dtype, device=dev)).sum().backward()
+        got[dev] = (mel.detach().cpu().double(), x.grad.cpu().double())
+    mel_err = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+    grad_err = rel_err(got["cuda"][1], got["cpu"][1])
+
+    target = synth_target(42, seed=1)
+    kw = dict(target_acoustic=target, objective="acoustic_semvec",
+              n_outer=2, n_inner=3, log_ii=1, continue_learning=True,
+              continue_learning_inv=True, verbose=False)
+    series = ("planned_loss_steps", "prod_loss_steps",
+              "prod_semvec_loss_steps", "inv_model_loss")
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        paule = Paule(device=dev, dtype=dtype, seed=7, physical_forward=True)
+        try:
+            r = paule.plan_resynth(**kw)
+        finally:
+            paule.close()
+        out[dev] = {s: np.array(getattr(r, s)) for s in series}
+    errs = rel_errs(out, series)
+    err = max(errs.values())
+    print(f"physical path, card f32 vs CPU f64: spectral mel max|err| "
+          f"{mel_err:.3e} (tol {SPECTRAL_MEL_ATOL}), its gradient rel err "
+          f"{grad_err:.3e} (tol {SPECTRAL_GRAD_RTOL}); short plan "
+          f"{sum(len(v) for v in out['cpu'].values())} losses, max rel err "
+          f"{err:.3e} (tol {PLAN_RTOL}); per series " + ", ".join(
+              f"{s} {e:.1e}" for s, e in errs.items()))
+    return (mel_err <= SPECTRAL_MEL_ATOL and grad_err <= SPECTRAL_GRAD_RTOL
+            and err <= PLAN_RTOL)
+
+
 def rel_errs(out, series):
     """Per series, the largest relative error of the card's run
     (``out["cuda"]``) against the CPU's."""
@@ -1163,12 +1345,64 @@ def drive_serve(paule):
     return ok
 
 
+def write_cp_file(path, cps):
+    """``cps`` (T, 30) as a tract-sequence file in ``synth.read_cp``'s
+    format: six header lines, the glottis model, the number of states, and
+    per state a line of 11 glottis and one of 19 tract values."""
+    lines = ["#"] * 6 + ["Geometric glottis", str(len(cps))]
+    for row in cps:
+        lines.append(" ".join(f"{v:.17g}" for v in row[19:]))
+        lines.append(" ".join(f"{v:.17g}" for v in row[:19]))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def write_vtl_speaker(path):
+    """A small VocalTractLab XML speaker: the default speaker's parameter
+    tables, the anatomy elements of the length estimate, two tract shapes
+    and a selected glottis model with a ``modal`` shape."""
+    tables = {w: synth.get_param_info(w) for w in ("tract", "glottis")}
+
+    def params(info):
+        return "".join(
+            f'<param index="{i}" name="{n}" min="{float(lo)!r}" '
+            f'max="{float(hi)!r}" neutral="{float(ne)!r}"/>'
+            for i, (n, lo, hi, ne) in enumerate(zip(
+                info["names"], info["mins"], info["maxs"],
+                info["neutrals"])))
+
+    tract = tables["tract"]
+    shapes = "".join(
+        f'<shape name="{name}">' + "".join(
+            f'<param name="{n}" value="{float(v)!r}"/>'
+            for n, v in zip(tract["names"], (1 - a) * tract["mins"]
+                            + a * tract["maxs"])) + "</shape>"
+        for name, a in (("a", 0.3), ("i", 0.7)))
+    with open(path, "w") as fh:
+        fh.write(
+            "<speaker><vocal_tract_model><anatomy>"
+            '<palate><p0 x="0.5" y="1.0"/><p1 x="3.25" y="1.4"/></palate>'
+            '<pharynx fulcrum_x="-1.5" fulcrum_y="2.0"/>'
+            '<larynx><narrow points="0.0 -1.0 1.0 -2.25"/></larynx>'
+            '<nasal_cavity length="11.4"/>' + params(tract)
+            + "</anatomy><shapes>" + shapes + "</shapes></vocal_tract_model>"
+            '<glottis_models><glottis_model type="Geometric glottis" '
+            'selected="1"><static_params><param index="0" name="RL" '
+            'min="0.5" max="2.0" neutral="1.6"/></static_params>'
+            "<control_params>" + params(tables["glottis"])
+            + "</control_params></glottis_model></glottis_models>"
+            "</speaker>")
+
+
 def drive_cli():
     """``python -m paule_tpu_torch`` through its ``main``: ``plan`` of one
     WAV and ``corpus --batched 4`` over a temporary corpus of 4 WAVs (two
     labels, 202 cp frames each), on the card (the default device), one
-    outer iteration of 4 steps.  Checks the files they write and that
-    B1-B4 launched.  -> ok."""
+    outer iteration of 4 steps; then the host commands ``synth`` (a
+    tract-sequence file written here), ``seg2wav`` (a three-segment word)
+    and ``speaker-import`` (a small VTL XML speaker written here).  Checks
+    the files they write, that the imported speaker loads and speaks, and
+    that B1-B4 launched.  -> ok."""
     tiny = ["--n-outer", "1", "--n-inner", "4", "--n-epochs", "1",
             "--quiet"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -1200,6 +1434,7 @@ def drive_cli():
                 res = pickle.load(fh)
             ok = (ok and res["planned_cp"].shape == (202, 30)
                   and np.isfinite(res["prod_loss_curve"]).all())
+        ok = drive_host_commands(tmp) and ok
     print(f"command line: plan and corpus --batched 4, {wall:.3f} s "
           f"(two Paule() builds included); launches {launches}")
     if not ok:
@@ -1207,6 +1442,46 @@ def drive_cli():
     if not all(launches.values()):
         print("command line: a kernel was not launched", file=sys.stderr)
         ok = False
+    return ok
+
+
+def drive_host_commands(tmp):
+    """The CLI's ``synth``, ``seg2wav`` and ``speaker-import`` in ``tmp``.
+    -> ok."""
+    rng = np.random.default_rng(8)
+    cps = inv_normalize_cp(np.clip(
+        rng.normal(0, 0.05, (81, 30)).cumsum(0) * 0.2, -1, 1))
+    cp_file, seg = (os.path.join(tmp, n) for n in ("word.txt", "word.seg"))
+    write_cp_file(cp_file, cps)
+    with open(seg, "w") as fh:
+        fh.write("name = a; duration_s = 0.10;\nname = t; duration_s = "
+                 "0.05;\nname = a; duration_s = 0.10;\n")
+    xml, ini = (os.path.join(tmp, n) for n in ("vtl.speaker", "vtl.ini"))
+    write_vtl_speaker(xml)
+    t0 = time.perf_counter()
+    outs = {}
+    for cmd, args in (("synth", ["--cps", cp_file]),
+                      ("seg2wav", ["--seg", seg])):
+        outs[cmd] = os.path.join(tmp, cmd + ".wav")
+        cli_main([cmd, *args, "--out", outs[cmd]])
+    cli_main(["speaker-import", xml, "-o", ini, "--name", "smoke"])
+    wall = time.perf_counter() - t0
+    sig, sr = audio_io.read(outs["synth"])
+    seg_sig, _ = audio_io.read(outs["seg2wav"])
+    synth.initialize(ini)
+    try:
+        names = synth.get_param_info("tract")["names"]
+        spoken, _ = synth.speak(cps)
+    finally:
+        synth.initialize()
+    ok = (sr == 44100 and len(sig) == 80 * 110 and len(seg_sig) > 10000
+          and np.isfinite(spoken).all() and len(names) == 19)
+    print(f"  synth, seg2wav and speaker-import: {wall:.3f} s; synth "
+          f"{len(sig)} samples, seg2wav {len(seg_sig)}, the imported "
+          f"speaker speaks: {bool(np.abs(spoken).max() > 0)}")
+    if not ok:
+        print("command line: bad output of synth, seg2wav or "
+              "speaker-import", file=sys.stderr)
     return ok
 
 
@@ -1352,8 +1627,10 @@ def drive_pretrain(tmp):
 
 def drive_zoo(dev):
     """One Adam step of each zoo model that only the training slice has,
-    at batch 16 and T=100 on the card: ``SemVecToCpModel`` and
-    ``SemVecToMelModel`` (4 layers at H=180: B3/B4 twice), and
+    at batch 16 and T=100 on the card: ``SemVecToCpModel``,
+    ``SemVecToMelModel``, ``ForwardModelMelTimeSmoothResidual`` and
+    ``MelEmbeddingModelMelSmoothResidualUpsampling`` (each 4 layers at
+    H=180, their default widths: B3/B4 twice), and
     ``LSTMCritic`` and ``LSTMGenerator`` (H=200) in training (dropout 0.5,
     masks drawn on the card: B1/B2 per layer) and in eval (B3/B4).  ->
     (ok, {(kernel, T, B, H): launches})."""
@@ -1367,6 +1644,11 @@ def drive_zoo(dev):
     cases = [
         ("SemVecToCpModel", TM.SemVecToCpModel(), lambda m: m(x300), True),
         ("SemVecToMelModel", TM.SemVecToMelModel(), lambda m: m(x300), True),
+        ("ForwardModelMelTimeSmoothResidual",
+         TM.ForwardModelMelTimeSmoothResidual(), lambda m: m(x30), True),
+        ("MelEmbeddingModelMelSmoothResidualUpsampling",
+         TM.MelEmbeddingModelMelSmoothResidualUpsampling(),
+         lambda m: m(noise), True),
     ]
     for training in (True, False):
         kw = {"generator": drop} if training else {}
@@ -1454,6 +1736,11 @@ def check_pretrain_against_cpu():
     return err <= PLAN_RTOL
 
 
+def header(name, t_start):
+    """A phase's heading, with the seconds since the script started."""
+    print(f"{name} ({time.perf_counter() - t_start:.1f} s in):")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1469,7 +1756,7 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator().manual_seed(0)
-    print("kernels against their plain versions:")
+    header("kernels against their plain versions", t_start)
     ok_c, core = check_core(dev, gen, 402, 1)
     # B=8: continue-learning's training batch, T=402 for the forward model
     ok_c8, core8 = check_core(dev, gen, 402, 8)
@@ -1483,6 +1770,9 @@ def main():
     ok_s8, stack8 = check_stack2(dev, gen, 201, 8)
     # T=201, B=8: the inverse model's training shape (201 mel frames)
     ok_ci8, core_inv8 = check_core(dev, gen, 201, 8)
+    # T=201, B=1: the inverse model's initialisation of every plan from an
+    # acoustic target (the physical path's only B1 launch at B=1)
+    ok_ci1, core_inv1 = check_core(dev, gen, 201, 1)
     # the somatosensory variant: the cp->tube and tube->mel models at H=360
     # in planning (B=1), training (B=8) and the produced metrics (B=24,
     # forward only on the path); the tube embedder's two layers at T=402 as
@@ -1512,11 +1802,12 @@ def main():
     ok_edges = check_edges(dev, gen)
     ok_one = check_one_kernel_per_call(dev, gen)
     ok = (ok_c and ok_c8 and ok_s1 and ok_s4 and ok_s24 and ok_s8 and ok_ci8
-          and ok_tube and ok_t1 and ok_t24 and ok_train and ok_edges
+          and ok_ci1 and ok_tube and ok_t1 and ok_t24 and ok_train and ok_edges
           and ok_one)
     results = {**core, **stack}
     for name in core:
-        merge_errors(name, results, core8, core_inv8, *tube.values(),
+        merge_errors(name, results, core8, core_inv8, core_inv1,
+                     *tube.values(),
                      *train_core.values())
     for name in stack:
         merge_errors(name, results, stack4, stack24, stack8, tstack1,
@@ -1524,6 +1815,7 @@ def main():
     print_times("", results)
     print_times(" T=402 B=8", core8)
     print_times(" T=201 B=8", core_inv8)
+    print_times(" T=201 B=1", core_inv1)
     print_times(" B=4", stack4)
     print_times(" B=24", stack24)
     print_times(" B=8", stack8)
@@ -1534,10 +1826,10 @@ def main():
     for (seq, hidden), res in [*train_core.items(), *train_stack.items()]:
         print_times(f" T={seq} B=16 H={hidden}", res)
 
-    print("ceiling probes:")
+    header("ceiling probes", t_start)
     ok_p, probe, probe_launches = run_probes()
 
-    print("main path:")
+    header("main path", t_start)
     target = synth_target(402, seed=0)
     t0 = time.perf_counter()
     paule = Paule(seed=7)
@@ -1549,37 +1841,41 @@ def main():
                 "pred": core8["lstm_fwd"]["ms"] + core8["lstm_bwd"]["ms"],
                 "inv": (core_inv8["lstm_fwd"]["ms"]
                         + core_inv8["lstm_bwd"]["ms"])})
-        print("semvec path:")
+        header("semvec path", t_start)
         ok_sem = drive_semvec(paule, target)
-        print("batched path:")
+        header("batched path", t_start)
         ok_bat = drive_batched(paule, main_times)
-        print("iterative path:")
+        header("iterative path", t_start)
         ok_it = drive_iterative(paule)
-        print("HTTP service:")
+        header("HTTP service", t_start)
         ok_srv = drive_serve(paule)
     finally:
         paule.close()
-    print("command line:")
+    header("command line", t_start)
     ok_cli = drive_cli()
-    print("somatosensory path:")
+    header("somatosensory path", t_start)
     ok_som, _shapes = drive_somatosensory(target, launches, main_times)
-    print("speech-classifier path:")
+    header("speech-classifier path", t_start)
     ok_sc = drive_speech_classifier(target)
-    print("training path:")
+    header("physical path", t_start)
+    ok_phy, phy_launches = drive_physical(target, main_times)
+    header("training path", t_start)
     with tempfile.TemporaryDirectory() as tmp:
         ok_pre, _pre_shapes = drive_pretrain(tmp)
-    print("model zoo, one Adam step each:")
+    header("model zoo, one Adam step each", t_start)
     ok_zoo, _zoo_shapes = drive_zoo(dev)
+    header("card against the CPU", t_start)
     ok_cpu = check_against_cpu(False)
     ok_cpu_cl = check_against_cpu(True)
     ok_cpu_sem = check_semvec_against_cpu()
     ok_cpu_som = check_against_cpu(True, somatosensory=True)
     ok_cpu_bat = check_batched_against_cpu()
     ok_cpu_pre = check_pretrain_against_cpu()
+    ok_cpu_phy = check_physical_against_cpu()
     ok = (ok and ok_p and ok_plan and ok_cl and ok_sem and ok_som and ok_sc
-          and ok_bat and ok_it and ok_srv and ok_cli and ok_pre and ok_zoo
-          and ok_cpu and ok_cpu_cl and ok_cpu_sem and ok_cpu_som
-          and ok_cpu_bat and ok_cpu_pre)
+          and ok_phy and ok_bat and ok_it and ok_srv and ok_cli and ok_pre
+          and ok_zoo and ok_cpu and ok_cpu_cl and ok_cpu_sem and ok_cpu_som
+          and ok_cpu_bat and ok_cpu_pre and ok_cpu_phy)
 
     kernels = []
     for k in K.KERNELS:
@@ -1587,7 +1883,7 @@ def main():
         kernels.append({
             "name": k.__name__, "route": "cuda", "source": LSTM_SOURCE,
             "replaces": REPLACES[k.__name__],
-            "launches": launches[k.__name__],
+            "launches": launches[k.__name__] + phy_launches[k.__name__],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})

@@ -7,22 +7,21 @@
     python -m paule_tpu_torch corpus --data-dir corpus/ --save-dir out/ \\
         --batched 8
     python -m paule_tpu_torch babble --n 100 --out babble.pkl
+    python -m paule_tpu_torch synth --cps traj.txt --out out.wav
+    python -m paule_tpu_torch seg2wav --seg word.seg --out word.wav
+    python -m paule_tpu_torch speaker-import JD3.speaker -o jd3.speaker
 
 The model (and ``babble``'s log-mels) runs on the card (``--device cuda``,
 the default, which fails without one) or, with ``--device cpu``, on the
-CPU.  ``synth``, ``seg2wav``, ``speaker-import`` and ``plan --visualize``
-are not ported yet: they exit with an error naming their ROADMAP.md item
-and run nothing.
+CPU; ``synth``, ``seg2wav`` and ``speaker-import`` run on the host.
+``plan --visualize`` also writes the plots of
+:func:`paule_tpu_torch.visualize.visualize_results` (matplotlib needed).
 """
 
 import argparse
 import os
 import pickle
 import sys
-
-#: the message of a command that is not ported yet
-NOT_PORTED = ("{what} is not ported yet (ROADMAP.md, 'Modules to port', "
-              "item 12: {needs})")
 
 
 def _add_plan_args(p):
@@ -73,9 +72,6 @@ def cmd_sysinfo(_args):
 def cmd_plan(args):
     from .dsp import audio as audio_io
 
-    if args.visualize:
-        raise SystemExit(NOT_PORTED.format(
-            what="plan --visualize", needs="paule_tpu/visualize.py"))
     model = _make_paule(args)
     try:
         results = model.plan_resynth(
@@ -93,6 +89,11 @@ def cmd_plan(args):
         audio_io.write(save + "_planned.flac", results.prod_sig,
                        results.prod_sr)
         model.save_state(save + "_state.pkl")
+        if args.visualize:
+            from . import visualize
+
+            visualize.visualize_results(results, os.path.basename(save),
+                                        os.path.dirname(save) or ".")
     finally:
         model.close()
     print(f"saved {save}.pkl (+ audio, + model state)")
@@ -173,10 +174,50 @@ def cmd_babble(args):
     print(f"wrote {len(df)} babbled utterances to {args.out}")
 
 
-def _not_ported(what, needs):
-    def fn(_args):
-        raise SystemExit(NOT_PORTED.format(what=what, needs=needs))
-    return fn
+def _write_audio(cps, out):
+    from . import synth
+    from .dsp import audio as audio_io
+
+    sig, sr = synth.speak(cps)
+    path = audio_io.write(out, sig, sr)
+    print(f"wrote {path} ({len(sig) / sr:.2f} s)")
+
+
+def cmd_synth(args):
+    from . import synth
+
+    _write_audio(synth.read_cp(args.cps), args.out)
+
+
+def cmd_seg2wav(args):
+    from . import synth
+
+    _write_audio(synth.seg_to_cps(args.seg), args.out)
+
+
+def cmd_speaker_import(args):
+    from .synth import speaker_import
+
+    voiceless = [v for v in (args.voiceless or "").split(",") if v]
+    tube_fit = None
+    if args.fit_tube:
+        from .synth import vtl_plant
+
+        lib = args.fit_tube_lib or vtl_plant.DEFAULT_LIB
+        if not vtl_plant.vtl_available(lib, args.src):
+            raise SystemExit(
+                "--fit-tube needs a VocalTractLab library to sample "
+                f"(none at {lib})")
+        plant = vtl_plant.VTLPlant(lib_path=lib, speaker_path=args.src)
+        parsed = speaker_import.parse_vtl_speaker(args.src)
+        tube_fit = speaker_import.fit_tract_affine(
+            parsed, plant.tract_to_tube, n_samples=2200, shape_weight=12)
+        print(f"fitted [tract_affine]: {tube_fit['diagnostics']}")
+    speaker_import.import_speaker(
+        args.src, args.out, name=args.name,
+        base_length_cm=args.base_length, voiceless=voiceless,
+        tube_fit=tube_fit)
+    print(f"wrote {args.out}")
 
 
 def build_parser():
@@ -219,26 +260,30 @@ def build_parser():
     p.add_argument("--cps", required=True,
                    help="tract-sequence file (read_cp format)")
     p.add_argument("--out", required=True)
-    p.set_defaults(fn=_not_ported("synth", "synth.read_cp"))
+    p.set_defaults(fn=cmd_synth)
 
     p = sub.add_parser("seg2wav",
                        help="segment file -> gestures -> cps -> audio")
     p.add_argument("--seg", required=True)
     p.add_argument("--out", required=True)
-    p.set_defaults(fn=_not_ported("seg2wav", "synth.seg_to_cps"))
+    p.set_defaults(fn=cmd_seg2wav)
 
     p = sub.add_parser(
         "speaker-import",
         help="convert a VocalTractLab XML speaker to the INI speaker format")
     p.add_argument("src", help="VTL XML .speaker file")
     p.add_argument("-o", "--out", required=True, help="output INI path")
-    p.add_argument("--name", default=None)
-    p.add_argument("--base-length", type=float, default=None)
-    p.add_argument("--voiceless", default=None)
-    p.add_argument("--fit-tube", action="store_true")
-    p.add_argument("--fit-tube-lib", default=None)
-    p.set_defaults(fn=_not_ported("speaker-import",
-                                  "paule_tpu/synth/speaker_import.py"))
+    p.add_argument("--name", default=None, help="speaker name")
+    p.add_argument("--base-length", type=float, default=None,
+                   help="override the estimated tract length (cm)")
+    p.add_argument("--voiceless", default=None,
+                   help="comma-separated shape names to emit voiced=0")
+    p.add_argument("--fit-tube", action="store_true",
+                   help="fit a [tract_affine] tube map against the "
+                        "VocalTractLab library's vtlTractToTube")
+    p.add_argument("--fit-tube-lib", default=None,
+                   help="path to libVocalTractLabApi.so for --fit-tube")
+    p.set_defaults(fn=cmd_speaker_import)
     return parser
 
 

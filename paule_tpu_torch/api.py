@@ -7,21 +7,22 @@ its audio), initialised from the inverse model (``initialize_from=
 "acoustic"``) or from the cp generator (``"semvec"``), under the
 objectives ``"acoustic"``, ``"semvec"`` and ``"acoustic_semvec"``, with
 ``past_cp`` and continue-learning of the predictive and inverse models;
-the speech-classifier variant (``use_speech_classifier``) and the
+planning through the physical forward model in place of the learned one
+(``physical_forward=True``, :mod:`paule_tpu_torch.spectral`); the
+speech-classifier variant (``use_speech_classifier``) and the
 somatosensory variant (``use_somatosensory_feedback``: cp->tube, tube->mel
 and a tube embedder beside the acoustic models, tube extraction from the
 synthesizer, ``continue_learning_tube``); weights from the in-repo release,
 a reference ``pretrained_models/`` tree, a seeded random initialisation or
 injected trees; ``save_state`` and ``load_state``; ``plan_iterative``, the
-chunked planner of long utterances.  Several utterances plan as one batch
-through :mod:`paule_tpu_torch.parallel.batched`.
+chunked planner of long utterances; ``plot``, the mel panels of each
+outer iteration (:mod:`paule_tpu_torch.visualize`).  Several utterances
+plan as one batch through :mod:`paule_tpu_torch.parallel.batched`.
 
-Options outside the port raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.  Synthesis, the produced-audio metrics and
-continue-learning run synchronously after each outer iteration's planning
-segment; the JAX package's overlap and deferred-fetch machinery is
-numerically exact there (``paule_tpu/api.py:122-146``, ``:935-955``), so the
-results are the same.
+Synthesis, the produced-audio metrics and continue-learning run
+synchronously after each outer iteration's planning segment; the JAX
+package's overlap and deferred-fetch machinery is numerically exact there
+(``paule_tpu/api.py:122-146``, ``:935-955``), so the results are the same.
 """
 
 import contextlib
@@ -59,6 +60,7 @@ from .planning.results import (BestSynthesisAcoustic, BestSynthesisSemantic,
 from .planning.trainer import (ModelTrainer, ReplayBuffer,
                                create_epoch_batches, train_epochs)
 from .release import load_into, load_release
+from .spectral import SpectralForwardModel
 
 #: model key -> (converter kind, sub-directory of a reference
 #: ``pretrained_models/`` tree, a substring the file's name must hold or
@@ -106,6 +108,13 @@ class Paule:
     drawn from :attr:`tube_generator` on the device); the synthesizer then
     also extracts the tube.  The two variants exclude each other
     (``ValueError``), as in the JAX package.
+
+    ``physical_forward=True`` replaces the learned predictive model by the
+    differentiable physical model :class:`~paule_tpu_torch.spectral.
+    SpectralForwardModel`, which has no parameters: weights for
+    ``predictive`` (released, read from ``pretrained_dir`` or injected as
+    ``pred_model``) are ignored, and continue-learning trains the other
+    models only.
 
     ``device=None`` means ``"cuda"``, which raises when no CUDA device is
     present; pass ``device="cpu"`` to run on the CPU (the LSTM kernels'
@@ -168,10 +177,6 @@ class Paule:
                 "at the moment you have to choose either to use "
                 "`use_somatosenrosry_feedback=True` OR to use "
                 "`use_speech_classifier=True` or none")
-        if physical_forward:
-            raise NotImplementedError(
-                "physical_forward (the spectral forward model) is not ported "
-                "yet (ROADMAP.md, 'Modules to port', item 12)")
         if synthesis_error not in ("raise", "skip"):
             raise ValueError("synthesis_error must be 'raise' or 'skip'")
         self.device = torch.device(device or "cuda")
@@ -187,6 +192,7 @@ class Paule:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.dtype = dtype or torch.float32
+        self.physical_forward = physical_forward
         self.smiling = smiling
         self.use_speech_classifier = use_speech_classifier
         self.use_somatosensory_feedback = use_somatosensory_feedback
@@ -205,9 +211,14 @@ class Paule:
             device=self.device).manual_seed(seed)
 
         trees = self._resolve_weights(pretrained_dir)
-        self.pred_model = self._model(
-            ForwardModel(num_lstm_layers=1, hidden_size=720),
-            pred_model, trees.get("predictive"))
+        if physical_forward:
+            # nothing to load, and no draw from the generator
+            # (paule_tpu/api.py:166-169)
+            self.pred_model = SpectralForwardModel().eval()
+        else:
+            self.pred_model = self._model(
+                ForwardModel(num_lstm_layers=1, hidden_size=720),
+                pred_model, trees.get("predictive"))
         self.inv_model = self._model(
             InverseModelMelTimeSmoothResidual(num_lstm_layers=1,
                                               hidden_size=720),
@@ -543,6 +554,11 @@ class Paule:
         the tube->mel model on (produced tube, produced mel) of the
         predictive model's rows.
 
+        ``plot=True`` shows, and ``plot="<prefix>"`` writes to
+        ``<prefix>_<outer iteration>.png``, the mel panels of
+        :func:`~paule_tpu_torch.visualize.plot_mels` after each outer
+        iteration that logged a step (``paule_tpu/api.py:1335-1345``).
+
         Returns :class:`PlanningResults`, or under a variant
         :class:`PlanningResultsWithSpeechClassifier` /
         :class:`PlanningResultsWithSomatosensory`."""
@@ -556,10 +572,6 @@ class Paule:
         if objective not in engine.OBJECTIVES:
             raise ValueError("objective has to be one of 'acoustic_semvec', "
                              "'acoustic' or 'semvec'")
-        if plot:
-            raise NotImplementedError(
-                "plot (paule_tpu/visualize.py) is not ported yet (ROADMAP.md,"
-                " 'Modules to port', item 12)")
         if learning_rate_learning:
             self.pred_trainer.set_learning_rate(learning_rate_learning)
         if learning_rate_learning_inv:
@@ -715,7 +727,7 @@ class Paule:
                    "continue_learning": 0.0}
         start = time.perf_counter()
 
-        for _ii_outer in range(n_outer):
+        for ii_outer in range(n_outer):
             with _phase(timings, "planning"):
                 seg = engine.plan_segment(
                     models, xx, optimizer, target_mel_dev, target_semvec_dev,
@@ -779,6 +791,13 @@ class Paule:
                                    verbose)
                 if log_cps:
                     logs["cp_steps"].append(list(snapshots))
+            if plot and n_segments:
+                from . import visualize
+
+                visualize.plot_mels(
+                    True if plot is True else f"{plot}_{ii_outer:03d}.png",
+                    target_mel[0], initial_pred_mel, initial_prod_mel,
+                    pred_mels[-1], pm["prod_mel"][-1])
 
             if continue_learning and n_segments:
                 with _phase(timings, "continue_learning"):
@@ -1001,8 +1020,11 @@ class Paule:
                      rng=self._py_rng)
         rows = sample_training(add_training_data_pred)
         cps, mels = rows["cp_norm"], rows["melspec_norm_synthesized"]
-        logs["pred_model_loss"].extend(
-            train_epochs(self.pred_trainer, cps, mels, **train))
+        if not self.physical_forward:
+            # the physical forward model has nothing to train; its rows
+            # are drawn all the same (paule_tpu/api.py:1658-1662)
+            logs["pred_model_loss"].extend(
+                train_epochs(self.pred_trainer, cps, mels, **train))
         if continue_learning_tube:
             # the same rows (paule_tpu/api.py:1664-1669)
             tubes = rows["tube_norm"]

@@ -12,7 +12,9 @@ states of the instance's random generators (in place of the JAX key; the
 tube embedder's dropout generator is restored only on a device of the kind
 it was saved from) and the replay buffer.  As there, the flags are
 recorded, not restored: they are the constructor's choice, and a variant's
-state is restored only into an instance that has the variant.
+state is restored only into an instance that has the variant.  The
+physical forward model (``physical_forward=True``) has no parameters: its
+entry is empty and its Adam state ``None``.
 
 The format is the port's own: plain dicts, lists, tensors and numbers,
 written with ``torch.save`` and read back with ``torch.load(...,
@@ -56,6 +58,19 @@ def _cpu(tree):
     return tree
 
 
+def _opt_state(trainer):
+    """A trainer's Adam state, ``None`` for a trainer without
+    parameters."""
+    if trainer.optimizer is None:
+        return None
+    return _cpu(trainer.optimizer.state_dict())
+
+
+def _load_opt_state(trainer, state):
+    if trainer.optimizer is not None and state is not None:
+        trainer.optimizer.load_state_dict(_cpu(state))
+
+
 def _somato_parts(paule):
     """The somatosensory variant's modules and optimizers, keyed as
     ``paule_tpu/checkpoint.py:76-81`` keys their state."""
@@ -72,7 +87,7 @@ def paule_state(paule):
     state = {
         "format": FORMAT, "version": FORMAT_VERSION,
         "pred_params": _cpu(paule.pred_model.state_dict()),
-        "pred_opt_state": _cpu(paule.pred_trainer.optimizer.state_dict()),
+        "pred_opt_state": _opt_state(paule.pred_trainer),
         "inv_params": _cpu(paule.inv_model.state_dict()),
         "inv_opt_state": _cpu(paule.inv_trainer.optimizer.state_dict()),
         "embedder_params": _cpu(paule.embedder.state_dict()),
@@ -123,8 +138,7 @@ def restore_paule_state(paule, state):
     lists (``Optimizer.load_state_dict`` keeps a CPU tensor of the right
     dtype as it is, and Adam updates its moments in place)."""
     paule.pred_model.load_state_dict(state["pred_params"])
-    paule.pred_trainer.optimizer.load_state_dict(
-        _cpu(state["pred_opt_state"]))
+    _load_opt_state(paule.pred_trainer, state["pred_opt_state"])
     paule.inv_model.load_state_dict(state["inv_params"])
     paule.inv_trainer.optimizer.load_state_dict(_cpu(state["inv_opt_state"]))
     paule.embedder.load_state_dict(state["embedder_params"])

@@ -3,9 +3,7 @@
 parameters are named as the JAX parameter trees.
 
 The reference-name aliases name the port's modules (the JAX package's name
-the function pairs of its blocks).  Not in the port:
-``ForwardModelMelTimeSmoothResidual``,
-``MelEmbeddingModelMelSmoothResidualUpsampling`` and the ``*_init``
+the function pairs of its blocks).  Not in the port: the ``*_init``
 aliases, which have no counterpart where a module initialises itself.
 """
 
@@ -22,8 +20,10 @@ from .classifier import (  # noqa: F401
     TransformerEncoderLayer as CustomTransformerEncoderLayer,
     positional_encoding as PositionalEncoding,
 )
-from .embedder import EmbeddingModel  # noqa: F401
-from .forward import ForwardModel  # noqa: F401
+from .embedder import (  # noqa: F401
+    EmbeddingModel, MelEmbeddingModelMelSmoothResidualUpsampling)
+from .forward import (  # noqa: F401
+    ForwardModel, ForwardModelMelTimeSmoothResidual)
 from .generative import (  # noqa: F401
     Critic,
     Generator,

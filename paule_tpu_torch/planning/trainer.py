@@ -91,7 +91,11 @@ class ModelTrainer:
     the reference's persistent torch optimizers.  The model's parameters
     take gradients only inside :meth:`train_batch`: outside it they are
     frozen, so that planning through the same model computes no weight
-    gradients."""
+    gradients.
+
+    A model without parameters (the physical forward model) gets no
+    optimizer (``optimizer`` is ``None``): a step computes the loss only,
+    as an Adam step on the JAX package's empty parameter tree does."""
 
     def __init__(self, model, *, loss="rmse", learning_rate=0.001):
         if loss not in LOSSES:
@@ -99,28 +103,33 @@ class ModelTrainer:
                              f"{loss!r}")
         self.model = model.requires_grad_(False)
         self.loss_fn = LOSSES[loss]
+        params = list(model.parameters())
         self.optimizer = torch.optim.Adam(
-            model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
-            eps=1e-8)
+            params, lr=learning_rate, betas=(0.9, 0.999),
+            eps=1e-8) if params else None
         #: Adam steps taken
         self.steps = 0
 
     def set_learning_rate(self, lr):
         """Change the learning rate; the Adam moments are kept."""
-        if lr is not None:
+        if lr is not None and self.optimizer is not None:
             self.optimizer.param_groups[0]["lr"] = lr
 
     def train_batch(self, batch_in, batch_out):
         """One Adam step on a batch; -> the loss, a detached tensor on the
         batch's device (no host sync)."""
-        self.model.requires_grad_(True)
-        try:
-            loss = self.loss_fn(self.model(batch_in), batch_out)
-            loss.backward()
-            self.optimizer.step()
-        finally:
-            self.optimizer.zero_grad(set_to_none=True)
-            self.model.requires_grad_(False)
+        if self.optimizer is None:
+            with torch.no_grad():
+                loss = self.loss_fn(self.model(batch_in), batch_out)
+        else:
+            self.model.requires_grad_(True)
+            try:
+                loss = self.loss_fn(self.model(batch_in), batch_out)
+                loss.backward()
+                self.optimizer.step()
+            finally:
+                self.optimizer.zero_grad(set_to_none=True)
+                self.model.requires_grad_(False)
         self.steps += 1
         return loss.detach()
 

@@ -1,8 +1,8 @@
 """The port's command line (``python -m paule_tpu_torch``) on the CPU:
-``plan`` and ``corpus --batched`` write their results, ``babble`` writes
-what the JAX package's ``babble`` writes, ``sysinfo`` prints, the card is
-the default device, and the commands not ported yet exit with an error
-naming their ROADMAP.md item without running."""
+``plan`` (also with ``--visualize``) and ``corpus --batched`` write their
+results; ``babble``, ``synth``, ``seg2wav`` and ``speaker-import`` write
+what the JAX package's commands write; ``sysinfo`` prints, and the card
+is the default device."""
 
 import os
 import pickle
@@ -107,6 +107,18 @@ def test_the_card_is_the_default_device(tmp_path, monkeypatch):
         main(["plan", "--target", target, "--save", str(tmp_path / "w")])
 
 
+def _cp_file(path):
+    """A tract-sequence file (``read_cp``'s format) of a short word."""
+    seg = path.parent / "cp_source.seg"
+    seg.write_text("a 0.06\ni 0.06\n")
+    cps = synth.seg_to_cps(str(seg))
+    lines = ["#"] * 6 + ["Geometric glottis", str(len(cps))]
+    for row in cps:
+        lines.append(" ".join(f"{v:.17g}" for v in row[19:]))
+        lines.append(" ".join(f"{v:.17g}" for v in row[:19]))
+    path.write_text("\n".join(lines) + "\n")
+
+
 @pytest.mark.parametrize("argv,needs", [
     (["synth", "--cps", "t.txt", "--out", "o.wav"], "read_cp"),
     (["seg2wav", "--seg", "w.seg", "--out", "o.wav"], "seg_to_cps"),
@@ -115,20 +127,65 @@ def test_the_card_is_the_default_device(tmp_path, monkeypatch):
      "visualize.py"),
 ])
 def test_unported_commands_exit_with_an_error(argv, needs, tmp_path,
-                                              monkeypatch):
-    """They name ROADMAP item 12 and what they need, and write nothing."""
+                                              monkeypatch, capsys):
+    """The commands that exited naming ROADMAP item 12 until they were
+    ported (``needs`` names what they needed) now run: ``synth``,
+    ``seg2wav`` and ``speaker-import`` write what the JAX package's
+    commands write (byte for byte), ``plan --visualize`` (on the CPU) also
+    writes the plots of ``visualize_results``."""
+    from paule_tpu.__main__ import main as jax_main
+    from test_torch_speaker_import import write_vtl_speaker
+
     monkeypatch.chdir(tmp_path)
+    out = argv[argv.index("-o" if "-o" in argv else "--out") + 1] \
+        if argv[0] != "plan" else None
+    if needs == "read_cp":
+        _cp_file(tmp_path / "t.txt")
+    elif needs == "seg_to_cps":
+        (tmp_path / "w.seg").write_text("name = a; duration_s = 0.10;\n"
+                                        "name = t; duration_s = 0.05;\n")
+    elif needs == "speaker_import":
+        write_vtl_speaker(tmp_path / "JD3.speaker")
+    else:
+        _wav(str(tmp_path / "w.wav"), 24, 0)
+        main(argv + TINY)
+        assert "saved" in capsys.readouterr().out
+        files = set(os.listdir(tmp_path))
+        for name in ("w.pkl", "w_state.pkl", "w_mel.png", "w_loss.png",
+                     "w_cps.png", "w_planned.wav", "w_target.wav"):
+            assert name in files, name
+        assert os.listdir(tmp_path / "w_planned_svgs")
+        return
+    main(argv)
+    assert "wrote" in capsys.readouterr().out
+    ported = (tmp_path / out).read_bytes()
+    jax_argv = [a if a != out else "jax_" + out for a in argv]
+    jax_main(jax_argv)
+    assert ported == (tmp_path / ("jax_" + out)).read_bytes()
+    assert len(ported) > 1000
+
+
+def test_speaker_import_fit_tube_needs_the_library(tmp_path, monkeypatch):
+    """``--fit-tube`` without a VocalTractLab library exits before writing,
+    naming the library it looked for."""
+    from test_torch_speaker_import import write_vtl_speaker
+
+    src = write_vtl_speaker(tmp_path / "x.speaker")
+    lib = str(tmp_path / "libVocalTractLabApi.so")
     with pytest.raises(SystemExit) as exc:
-        main(argv)
-    message = str(exc.value.code)
-    assert "item 12" in message and needs in message
-    assert os.listdir(tmp_path) == []
+        main(["speaker-import", src, "-o", str(tmp_path / "x.ini"),
+              "--fit-tube", "--fit-tube-lib", lib])
+    assert "--fit-tube needs a VocalTractLab library" in str(exc.value.code)
+    assert lib in str(exc.value.code)
+    assert not (tmp_path / "x.ini").exists()
 
 
 def test_module_entry_point_exits_non_zero():
+    """A missing input file fails the command with a non-zero exit."""
     res = subprocess.run(
-        [sys.executable, "-m", "paule_tpu_torch", "synth", "--cps", "t.txt",
-         "--out", "o.wav"],
+        [sys.executable, "-m", "paule_tpu_torch", "synth", "--cps",
+         "no_such_trajectory.txt", "--out", "o.wav"],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
         text=True, timeout=120)
-    assert res.returncode != 0 and "item 12" in res.stderr
+    assert res.returncode != 0 and "no_such_trajectory.txt" in res.stderr
+    assert not os.path.exists(os.path.join(REPO, "o.wav"))

@@ -147,18 +147,28 @@ def test_wav_path_target_matches_sig_sr(target, tmp_path):
                                atol=1e-12)
 
 
-def test_options_outside_the_slice_raise(target):
-    """Each option the port does not have yet raises, naming its ROADMAP
-    item."""
+def test_options_outside_the_slice_raise(target, monkeypatch):
+    """The one option the port does not have, ``mesh=`` of the batched
+    planners, raises naming its ROADMAP item (11).  ``plot`` and
+    ``physical_forward``, which raised naming item 12 until they were
+    ported, now run: ``plot=True`` hands the mel panels to
+    ``visualize.plot_mels`` to show."""
+    from paule_tpu_torch import visualize
+    from paule_tpu_torch.parallel.batched import plan_batch_resynth
+
+    calls = []
+    monkeypatch.setattr(visualize, "plot_mels",
+                        lambda *args: calls.append(args))
     port = Paule(device="cpu", dtype=torch.float64)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-            port.plan_resynth(target_acoustic=target, n_outer=1, n_inner=1,
-                              continue_learning=False, plot=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+            plan_batch_resynth(port, np.zeros((1, 4, 60)), mesh=object())
+        port.plan_resynth(target_acoustic=target, n_outer=1, n_inner=1,
+                          continue_learning=False, plot=True, verbose=False)
     finally:
         port.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        Paule(device="cpu", physical_forward=True)
+    assert len(calls) == 1 and calls[0][0] is True
+    Paule(device="cpu", physical_forward=True).close()
 
 
 def test_both_variants_together_raise():
@@ -192,7 +202,8 @@ def test_import_leaves_no_jax():
         "'models.torch_convert', 'dsp.griffinlim', 'models.classifier', "
         "'parallel.batched', 'planning.iterative', 'experiments', "
         "'serve', '__main__', 'pretrain', 'models.baselines', "
-        "'tools.train_release_weights'):\n"
+        "'tools.train_release_weights', 'spectral', 'visualize', 'util', "
+        "'synth.speaker_import', 'synth.vtl_plant', 'dsp.formants'):\n"
         "    assert 'paule_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

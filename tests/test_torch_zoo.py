@@ -2,10 +2,12 @@
 train-mode batch norm (also against ``torch.nn.BatchNorm1d``), instance and
 layer norm, the inception block, ``Critic``, ``SemVecToCpModel``,
 ``SemVecToMelModel``, ``LSTMCritic`` / ``LSTMGenerator`` (eval, and
-training with JAX's keep masks), ``SpeechNonSpeechTransformer`` and the
-baselines, each at small widths with parameters from the JAX initialiser
-(through ``params_from_jax``): outputs and every parameter gradient agree
-to 1e-10; and the critic's checkpoint converter."""
+training with JAX's keep masks), ``SpeechNonSpeechTransformer``, the
+baselines, ``ForwardModelMelTimeSmoothResidual`` and
+``MelEmbeddingModelMelSmoothResidualUpsampling``, each at small widths
+with parameters from the JAX initialiser (through ``params_from_jax``):
+outputs and every parameter gradient agree to 1e-10; and the critic's
+checkpoint converter."""
 
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ import jax.numpy as jnp
 from paule_tpu.models import baselines as JBL
 from paule_tpu.models import blocks as JB
 from paule_tpu.models import classifier as JC
+from paule_tpu.models import embedder as JE
+from paule_tpu.models import forward as JF
 from paule_tpu.models import generative as JG
 from paule_tpu.models import torch_convert as JTC
 from paule_tpu_torch import models as TM
@@ -173,6 +177,32 @@ def test_semvec_to_trajectory_models_match_jax(kind, lstm_resid):
                   lstm_resid=lstm_resid)
         jm, tm = JG.SemVecToMelModel(**kw), TM.SemVecToMelModel(**kw)
     _check(jm, tm, [x])
+
+
+@pytest.mark.parametrize("layers,lstm_resid", [(2, True), (1, False),
+                                               (3, True)])
+def test_forward_model_mel_time_smooth_residual_matches_jax(layers,
+                                                            lstm_resid):
+    """Residual time smoothing, +vel/acc, the LSTM stack (a fused pair, one
+    layer alone, a pair and a layer), half-sequence pooling of an odd
+    length, mel-channel smoothing and the grouped-conv weighting."""
+    kw = dict(input_size=6, output_size=6, hidden_size=8,
+              num_lstm_layers=layers, mel_smooth_layers=2, resid_blocks=2,
+              lstm_resid=lstm_resid)
+    tm = _check(JF.ForwardModelMelTimeSmoothResidual(**kw),
+                TM.ForwardModelMelTimeSmoothResidual(**kw),
+                [_x((2, 11, 6), seed=11, scale=0.5)])
+    assert (tm.resid_weighting is None) is not lstm_resid
+
+
+@pytest.mark.parametrize("lens", [None, [9, 4]])
+def test_mel_embedding_model_smooth_residual_upsampling_matches_jax(lens):
+    kw = dict(input_size=6, output_size=5, hidden_size=8, num_lstm_layers=2,
+              mel_smooth_layers=2, post_upsampling_size=12)
+    lens = None if lens is None else np.asarray(lens)
+    _check(JE.MelEmbeddingModelMelSmoothResidualUpsampling(**kw),
+           TM.MelEmbeddingModelMelSmoothResidualUpsampling(**kw),
+           [_x((2, 9, 6), seed=12), lens])
 
 
 def _keep_masks(key, n_boundaries, shape, p):
