@@ -80,7 +80,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
    GAN's draws made on the CPU for both), and the physical path
    (``check_physical_against_cpu``: the spectral mel and its gradient at
    full width, and a short plan with continue-learning);
-11. prints one JSON line with the kernels' numbers (the launches of the
+11. checks the last modules of the port: ``Paule()`` under
+    ``PAULE_TPU_NO_RELEASE=1`` builds with the seeded random weights and
+    prints its hint once (``check_release_fallback``); two card runs of
+    Griffin-Lim are bit-equal, its ordered overlap-add timed beside the
+    ``index_add_`` one it replaced (``check_griffin_lim``); the main
+    path's warm call with ``plan_overlap`` False, 2 and 3 chunks and
+    with ``async_chunk_fetch=False`` from one state, held against each
+    other, with each setting's phase split, interleaved timing rounds
+    against the synthesizer pool's size (``time_overlap``) and the busy
+    share of a traced call without and with overlap (``drive_overlap``;
+    ``drive_somatosensory`` also runs its call without overlap); the
+    batched planner over ``make_mesh(devices=["cuda:0", "cuda:0"])``,
+    its shards against the unsharded plans of the same halves, both
+    against the unsharded batch step by step, continue-learning's
+    sharded training step on a copy of the model against the whole
+    batch's (``check_sharded_train_step``), and its full run against
+    ``mesh=None``, with launches by (T, B, H) and utterances per second
+    (``drive_sharded``; B1/B2 also held at (402, 4)); and the reference
+    bridge's stand-ins
+    against the port's own functions (``check_reference_bridge``);
+12. prints one JSON line with the kernels' numbers (the launches of the
     main path's and the physical path's warm calls) and, last, one JSON
     line with the device.
 
@@ -98,6 +118,7 @@ import collections
 import contextlib
 import copy
 import http.client
+import io
 import json
 import os
 import pickle
@@ -110,21 +131,28 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from paule_tpu_torch import checkpoint as CK
 from paule_tpu_torch import experiments as X
 from paule_tpu_torch import models as TM
 from paule_tpu_torch import pretrain as PT
+from paule_tpu_torch import reference_bridge as RB
 from paule_tpu_torch import release as REL
 from paule_tpu_torch import serve as S
 from paule_tpu_torch import synth
 from paule_tpu_torch.__main__ import main as cli_main
 from paule_tpu_torch.api import Paule
 from paule_tpu_torch.dsp import audio as audio_io
+from paule_tpu_torch.dsp import griffinlim as GL
+from paule_tpu_torch.dsp import mel as MEL
 from paule_tpu_torch.dsp.griffinlim import mel_to_sig
+from paule_tpu_torch.dsp.resample import resample
 from paule_tpu_torch.dsp.targets import audio_target_to_mel
 from paule_tpu_torch.models.blocks import init_random
 from paule_tpu_torch.ops import lstm_kernels as K
 from paule_tpu_torch.ops.normalize import inv_normalize_cp
 from paule_tpu_torch.parallel import batched as TB
+from paule_tpu_torch.parallel import mesh as TMesh
+from paule_tpu_torch.planning.trainer import ModelTrainer
 from paule_tpu_torch.spectral import SpectralForwardModel
 from paule_tpu_torch.tools import kernel_ceiling_probes as P
 from paule_tpu_torch.tools import train_release_weights as R
@@ -765,20 +793,33 @@ def drive_somatosensory(target, main_launches, main_times):
     kw = dict(target_acoustic=target, initialize_from="acoustic",
               objective="acoustic_semvec", n_outer=n_outer, n_inner=n_inner,
               log_ii=1, continue_learning=True, continue_learning_inv=True,
-              continue_learning_tube=True, verbose=False)
+              continue_learning_tube=True, seed=7, verbose=False)
     paule = Paule(seed=7, use_somatosensory_feedback=True)
     try:
         timed_plan(paule, kw, "plan_resynth(use_somatosensory_feedback=True, "
                    "continue_learning_tube=True, continue_learning_inv=True,"
                    f" n_outer={n_outer}, n_inner={n_inner}, log_ii=1), first "
                    "call")
+        state = CK.paule_state(paule)
         tube0 = paule.tube_trainer.steps + paule.tube_mel_trainer.steps
         (r, launches, t), shapes = launches_by_shape(
-            lambda: timed_plan(paule, kw, "  second call"))
+            lambda: timed_plan(paule, kw, "  second call (plan_overlap="
+                               "True)"))
         tube_steps = (paule.tube_trainer.steps + paule.tube_mel_trainer.steps
                       - tube0)
+        # 8e: the same call from the same state without overlap
+        CK.restore_paule_state(paule, state)
+        paule.plan_overlap = False
+        r1, _l1, _t1 = timed_plan(paule, kw, "  the same, plan_overlap=False")
     finally:
         paule.close()
+    overlap_err = max([max_rel(r.planned_cp, r1.planned_cp)] + [
+        max_rel(getattr(r, k), getattr(r1, k))
+        for k in OVERLAP_SERIES + TUBE_SERIES])
+    print(f"  plan_overlap=True against False: max rel err {overlap_err:.3e}"
+          f" (tol {OVERLAP_RTOL}); synthesis {t['synthesis']:.3f} s against "
+          f"{_t1['synthesis']:.3f} s, wall {t['wall']:.3f} s against "
+          f"{_t1['wall']:.3f} s")
     steps = n_outer * n_inner
     print(f"  planning {t['planning'] / steps * 1e3:.2f} ms per inner step "
           f"(main path {main_times['planning'] / steps * 1e3:.2f}); "
@@ -813,6 +854,10 @@ def drive_somatosensory(target, main_launches, main_times):
             or r.pred_tube.shape != (402, 10)
             or r.pred_tube_mel.shape != (201, 60)):
         print("somatosensory path: bad tube shapes", file=sys.stderr)
+        ok = False
+    if overlap_err > OVERLAP_RTOL:
+        print("somatosensory path: overlap changed the results",
+              file=sys.stderr)
         ok = False
     if tube_steps != 2 * 30 * n_outer:
         print(f"somatosensory path: {tube_steps} tube training steps, "
@@ -1736,6 +1781,419 @@ def check_pretrain_against_cpu():
     return err <= PLAN_RTOL
 
 
+# ---------------------------------------------------------------------------
+# the last modules of the port: the release fallback (F1), Griffin-Lim's
+# overlap-add (F2), synthesis overlapped with planning (8e), data
+# parallelism over a mesh (item 11) and the reference bridge (item 12)
+# ---------------------------------------------------------------------------
+
+#: the overlap phase's settings against one segment (relative, float32)
+OVERLAP_RTOL = 1e-6
+#: the sharded batched planner against the unsharded one (relative, f32)
+SHARD_RTOL = 1e-5
+OVERLAP_SERIES = ("planned_loss_steps", "planned_mel_loss_steps",
+                  "prod_loss_steps", "pred_semvec_loss_steps",
+                  "prod_semvec_loss_steps", "pred_model_loss",
+                  "inv_model_loss")
+
+
+def max_rel(a, b):
+    """The largest ``|a - b|`` relative to ``max |b|``."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max(initial=0.0) / max(np.abs(b).max(
+        initial=0.0), 1e-30))
+
+
+def check_release_fallback(target):
+    """F1: under ``PAULE_TPU_NO_RELEASE=1``, two ``Paule()`` on the card
+    build with the seeded random weights of ``pretrained_dir="random"`` and
+    print the fallback hint once between them; one plans a few steps.
+    -> ok."""
+    REL._PRINTED_FALLBACK_HINT = False
+    os.environ["PAULE_TPU_NO_RELEASE"] = "1"
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            made = [Paule(seed=7) for _ in range(2)]
+    finally:
+        del os.environ["PAULE_TPU_NO_RELEASE"]
+    rand = Paule(seed=7, pretrained_dir="random")
+    try:
+        same = all(torch.equal(a, b) for p in made for a, b in zip(
+            p.pred_model.state_dict().values(),
+            rand.pred_model.state_dict().values()))
+        r = made[0].plan_resynth(
+            target_acoustic=target, objective="acoustic", n_outer=1,
+            n_inner=4, log_ii=1, continue_learning=False, verbose=False)
+    finally:
+        for p in (*made, rand):
+            p.close()
+    hints = out.getvalue().count("no pretrained weight release found")
+    print(f"  PAULE_TPU_NO_RELEASE=1: two Paule() on {made[0].device}, the "
+          f"hint printed {hints} time(s); weights equal to "
+          f"pretrained_dir='random': {same}; planned_loss_steps "
+          f"{np.round(r.planned_loss_steps, 5).tolist()}")
+    ok = (hints == 1 and same and len(r.planned_loss_steps) == 4
+          and np.isfinite(r.planned_loss_steps).all())
+    if not ok:
+        print("release fallback: no single hint, other weights or a bad "
+              "plan", file=sys.stderr)
+    return ok
+
+
+def overlap_add_index_add(istft, spec):
+    """The overlap-add Griffin-Lim had before (an atomic ``index_add_``),
+    on the same inputs as ``istft``, for the timing beside it."""
+    frames = spec.shape[0]
+    time_frames = torch.fft.irfft(spec, GL.N_FFT, dim=-1) * istft.win
+    idx = (torch.arange(frames, device=spec.device)[:, None] * GL.HOP
+           + torch.arange(GL.N_FFT, device=spec.device)[None, :]).reshape(-1)
+    y = torch.zeros(GL.HOP * (frames - 1) + GL.N_FFT, dtype=istft.win.dtype,
+                    device=spec.device)
+    y.index_add_(0, idx, time_frames.reshape(-1))
+    pad = GL.N_FFT // 2
+    return (y / istft.wss)[pad:pad + istft.length]
+
+
+def check_griffin_lim(target):
+    """F2: two card runs of ``mel_to_sig`` on the target's mel (201 frames)
+    are equal bit for bit; the overlap-add (one inverse STFT) timed against
+    the ``index_add_`` one it replaced, in the same run.  -> ok."""
+    mel = audio_target_to_mel(target, device="cuda",
+                              dtype=torch.float32)[2]
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(mel_to_sig(mel, device="cuda", dtype=torch.float32)[0])
+        wall = time.perf_counter() - t0
+    equal = np.array_equal(runs[0], runs[1])
+    frames = mel.shape[0]
+    gen = torch.Generator().manual_seed(5)
+    spec = torch.complex(torch.randn((frames, 513), generator=gen),
+                         torch.randn((frames, 513), generator=gen)).cuda()
+    istft = GL._Istft(frames, GL.HOP * (frames - 1), torch.float32,
+                      torch.device("cuda"))
+    new_ms = cuda_ms(lambda: istft(spec), 50)
+    old_ms = cuda_ms(lambda: overlap_add_index_add(istft, spec), 50)
+    diff = float((istft(spec) - overlap_add_index_add(istft, spec)).abs()
+                 .max())
+    old_same = torch.equal(overlap_add_index_add(istft, spec),
+                           overlap_add_index_add(istft, spec))
+    print(f"  mel_to_sig on the card ({frames} frames, 32 iterations): two "
+          f"runs bit-equal: {equal}; {wall:.3f} s a run (host clock)")
+    print(f"  inverse STFT of {frames} frames: ordered overlap-add "
+          f"{new_ms:.4f} ms, index_add_ {old_ms:.4f} ms (CUDA events, 50 "
+          f"calls); max|difference| {diff:.3e}; two index_add_ calls "
+          f"bit-equal: {old_same}")
+    if not equal:
+        print("griffin-lim: two card runs differ", file=sys.stderr)
+    return equal
+
+
+#: rounds of :func:`time_overlap`
+OVERLAP_ROUNDS = 7
+
+
+def time_overlap(paule, kw, state):
+    """The main path's warm call in :data:`OVERLAP_ROUNDS` rounds, each
+    round running every setting once in turn, so that drift across the
+    rounds touches them alike: one segment; two chunks on the default
+    synthesizer pool; two chunks on a pool of one synthesizer fewer (a
+    core left to the thread that queues the kernels while a chunk
+    synthesises); two chunks on a pool of 4.  Prints each setting's
+    median wall, planning and synthesis time, and every wall."""
+    default_plant = paule.plant
+    n_pool = len(default_plant._handles)
+    pools = {n: synth.SynthPool(size=n) for n in (n_pool - 1, 4)}
+    settings = {"one segment": (False, default_plant),
+                "2 chunks": (2, default_plant),
+                **{f"2 chunks, a pool of {n}": (2, pool)
+                   for n, pool in pools.items()}}
+    times = {name: [] for name in settings}
+    try:
+        for _ in range(OVERLAP_ROUNDS):
+            for name, (setting, plant) in settings.items():
+                CK.restore_paule_state(paule, state)
+                paule.plan_overlap = setting
+                paule.plant = plant
+                t0 = time.perf_counter()
+                paule.plan_resynth(**kw)
+                torch.cuda.synchronize()
+                t = paule.last_planning_timings
+                times[name].append((time.perf_counter() - t0,
+                                    t["planning"], t["synthesis"]))
+    finally:
+        paule.plant = default_plant
+        for pool in pools.values():
+            pool.close()
+    print(f"  warm call, median of {OVERLAP_ROUNDS} interleaved rounds "
+          f"(default pool {n_pool} synthesizers, {os.cpu_count()} cores):")
+    for name, rows in times.items():
+        wall, plan, syn = np.median(np.array(rows), axis=0)
+        print(f"    {name}: wall {wall:.3f} s, planning {plan:.3f} s, "
+              f"synthesis {syn:.3f} s; walls "
+              + ", ".join(f"{r[0]:.3f}" for r in rows))
+
+
+def drive_overlap(paule, target):
+    """8e: the main path's warm call (``drive_continue_learning``'s budget,
+    seed 7) from one state with ``plan_overlap`` False, 2 and 3 chunks,
+    and with 2 chunks and ``async_chunk_fetch=False``: the planned cp and
+    every loss series agree to :data:`OVERLAP_RTOL` relative (and are
+    compared bit for bit; the blocking copies must give the same bits),
+    each setting's phase split, the timing of :func:`time_overlap`, and
+    the device-busy share per phase of one traced call without and with
+    overlap.  -> ok."""
+    kw = dict(target_acoustic=target, initialize_from="acoustic",
+              objective="acoustic_semvec", n_outer=2, n_inner=24, log_ii=1,
+              continue_learning=True, continue_learning_inv=True, seed=7,
+              verbose=False)
+    state = CK.paule_state(paule)
+    runs = {}
+    try:
+        for setting in (False, 2, 3):
+            CK.restore_paule_state(paule, state)
+            paule.plan_overlap = setting
+            runs[setting] = timed_plan(paule, kw,
+                                       f"  plan_overlap={setting}")
+        CK.restore_paule_state(paule, state)
+        paule.plan_overlap = 2
+        paule.async_chunk_fetch = False
+        runs["blocking"] = timed_plan(
+            paule, kw, "  plan_overlap=2, async_chunk_fetch=False")
+        paule.async_chunk_fetch = True
+        ok = True
+        for setting in (2, 3, "blocking"):
+            a, b = runs[setting][0], runs[False][0]
+            err = max([max_rel(a.planned_cp, b.planned_cp)]
+                      + [max_rel(getattr(a, s), getattr(b, s))
+                         for s in OVERLAP_SERIES])
+            bits = np.array_equal(a.planned_cp, b.planned_cp) and all(
+                np.array_equal(getattr(a, s), getattr(b, s))
+                for s in OVERLAP_SERIES)
+            print(f"  plan_overlap={setting} against False: max rel err "
+                  f"{err:.3e} (tol {OVERLAP_RTOL}); bit-equal: {bits}; "
+                  f"launches {runs[setting][1]} (False: {runs[False][1]})")
+            ok = ok and err <= OVERLAP_RTOL
+        a, b = runs["blocking"][0], runs[2][0]
+        same = np.array_equal(a.planned_cp, b.planned_cp) and all(
+            np.array_equal(getattr(a, s), getattr(b, s))
+            for s in OVERLAP_SERIES)
+        print(f"  async_chunk_fetch=False against True (2 chunks): "
+              f"bit-equal: {same}; wall {runs['blocking'][2]['wall']:.3f} s "
+              f"against {runs[2][2]['wall']:.3f} s")
+        ok = ok and same
+        time_overlap(paule, kw, state)
+        for setting in (False, 2):
+            CK.restore_paule_state(paule, state)
+            paule.plan_overlap = setting
+            print(f"  device-busy share per phase, plan_overlap={setting} "
+                  "(one traced call):")
+            busy = device_busy_share(lambda: paule.plan_resynth(**kw),
+                                     runs[setting][2])
+            ok = ok and "planning" in busy
+    finally:
+        paule.plan_overlap = True
+        paule.async_chunk_fetch = True
+        CK.restore_paule_state(paule, state)
+    if not ok:
+        print("overlap: the settings disagree, or no phase ranges",
+              file=sys.stderr)
+    return ok
+
+
+def _step_errs(a, b, steps=(0, 2, 11, 23)):
+    """The planning sub-losses' largest relative difference (all fields,
+    every utterance) at each of ``steps``, ``a`` and ``b`` two
+    :class:`~paule_tpu_torch.planning.engine.SubLosses` of ``(n_steps,
+    B)`` arrays."""
+    errs = [max(max_rel(getattr(a, f)[i], getattr(b, f)[i])
+                for f in a._fields) for i in steps]
+    return ", ".join(f"step {i + 1} {e:.1e}" for i, e in zip(steps, errs))
+
+
+def check_sharded_train_step(paule, mesh, n_frames):
+    """Continue-learning's step with a mesh, on the card: two Adam steps
+    of the predictive model on batches of 8 seeded (cp, mel) pairs
+    (``n_frames`` mel frames, twice as many cp frames) split
+    over ``mesh`` (two shards of 4), the second shard predicted by a copy
+    of the model, so that its gradients are reduced into the model's and
+    the copy is synced after each step (what a second card would run),
+    against ``train_batch`` on the whole batches, from the same weights
+    and a fresh Adam each: the losses and every updated weight agree to
+    :data:`SHARD_RTOL` relative, and the copy holds the model's weights.
+    -> ok."""
+    gen = torch.Generator(device=paule.device).manual_seed(11)
+    whole, sharded = (ModelTrainer(copy.deepcopy(paule.pred_model))
+                      for _ in range(2))
+    twin = copy.deepcopy(sharded.model)
+    replicas = [sharded.model, twin]
+    loss_err = 0.0
+    for _ in range(2):
+        x = torch.rand((8, 2 * n_frames, 30), generator=gen,
+                       device=paule.device) * 2 - 1
+        y = torch.randn((8, n_frames, 60), generator=gen,
+                        device=paule.device)
+        ref = whole.train_batch(x, y)
+        out = sharded.train_batch(TMesh.shard_batch(mesh, x),
+                                  TMesh.shard_batch(mesh, y),
+                                  replicas=replicas)
+        TMesh.sync_replicas(sharded.model, replicas)
+        loss_err = max(loss_err, max_rel(out.item(), ref.item()))
+    w_err = max(max_rel(a.cpu(), b.cpu()) for a, b in zip(
+        sharded.model.parameters(), whole.model.parameters()))
+    synced = all(torch.equal(a, b) for a, b in zip(
+        sharded.model.parameters(), twin.parameters()))
+    print(f"  training step over the mesh, the second shard on a copy of "
+          f"the model, against train_batch on the whole batch of 8 (2 Adam "
+          f"steps): loss max rel err {loss_err:.3e}, weights {w_err:.3e} "
+          f"(tol {SHARD_RTOL}); the copy synced: {synced}")
+    return loss_err <= SHARD_RTOL and w_err <= SHARD_RTOL and synced
+
+
+def drive_sharded(paule, main_times):
+    """Item 11 on ``drive_batched``'s 8 targets of 402 cp frames over
+    ``make_mesh(devices=["cuda:0", "cuda:0"])`` (dp=2: two shards of 4 on
+    one card).  First the sharding alone: ``plan_batch`` (24 steps, no
+    training, which would couple the shards) sharded against the
+    unsharded plans of the same two halves, each at batch 4 as a shard:
+    the cp and sub-losses agree to :data:`SHARD_RTOL` relative (bit-equal
+    expected: B1-B4 give a row the same bits wherever it sits in a
+    batch).  Both against the unsharded plan of all 8, step by step: the
+    witness that batch size alone sets how far a sharded plan drifts from
+    the unsharded one.  Then continue-learning's sharded training step
+    (:func:`check_sharded_train_step`).  Then ``plan_batch_resynth``
+    (``objective="acoustic_semvec", n_outer=2, n_inner=24``,
+    continue-learning, 2 epochs of batches of 8) unsharded and sharded
+    from one state: launches by (T, B, H), utterances per second, and the
+    difference of every series, of which the first planning step's
+    sub-losses are held to :data:`SHARD_RTOL` (later steps are not: the
+    kernels at batch 4 and 8 round a row differently, by ~1e-8, and Adam's
+    first steps move every cp whose gradient is near its ``eps`` by up to
+    the learning rate, whatever the gradient's size).  -> ok."""
+    targets = [synth_target(402, seed=10 + i) for i in range(8)]
+    mels = np.stack([audio_target_to_mel(t, device=paule.device,
+                                         dtype=paule.dtype)[2]
+                     for t in targets])
+    mesh = TMesh.make_mesh(devices=["cuda:0", "cuda:0"])
+    plan_kw = dict(n_steps=24, objective="acoustic_semvec",
+                   log_semantics=True, synthesize=False)
+    sharded = TB.plan_batch(paule, mels, mesh=mesh, **plan_kw)
+    halves = [TB.plan_batch(paule, mels[i:i + 4], **plan_kw) for i in (0, 4)]
+    full = TB.plan_batch(paule, mels, **plan_kw)
+    joined = {"planned_cp": np.concatenate([h["planned_cp"]
+                                            for h in halves]),
+              "sub_losses": type(full["sub_losses"])(*(np.concatenate(
+                  [getattr(h["sub_losses"], f) for h in halves], axis=1)
+                  for f in full["sub_losses"]._fields))}
+    exact = [(sharded["planned_cp"], joined["planned_cp"])] + [
+        (getattr(sharded["sub_losses"], f), getattr(joined["sub_losses"], f))
+        for f in full["sub_losses"]._fields]
+    exact_err = max(max_rel(a, b) for a, b in exact)
+    bits = all(np.array_equal(a, b) for a, b in exact)
+    print(f"  plan_batch, 24 steps, dp=2 against the unsharded halves at "
+          f"batch 4: max rel err {exact_err:.3e} (tol {SHARD_RTOL}); "
+          f"bit-equal: {bits}")
+    for name, run in (("dp=2", sharded), ("the unsharded halves", joined)):
+        steps = _step_errs(run["sub_losses"], full["sub_losses"])
+        cp_err = max_rel(run["planned_cp"], full["planned_cp"])
+        print(f"  plan_batch, {name} against the unsharded batch of 8, not "
+              f"held: sub-losses {steps}; planned_cp {cp_err:.1e}")
+    ok_train = check_sharded_train_step(paule, mesh, mels.shape[1])
+
+    kw = dict(objective="acoustic_semvec", n_outer=2, n_inner=24,
+              continue_learning=True)
+    state = CK.paule_state(paule)
+    runs = {}
+    try:
+        # the first sharded call pays for the B=4 shapes' set-up
+        TB.plan_batch_resynth(paule, mels, mesh=mesh, **kw)
+        for name, m in (("mesh=None", None), (f"mesh={mesh}", mesh)):
+            CK.restore_paule_state(paule, state)
+            paule._py_rng.seed(7)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            out, shapes = launches_by_shape(
+                lambda m=m: TB.plan_batch_resynth(paule, mels, mesh=m, **kw))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[name] = (out, shapes, wall, counts(),
+                          dict(paule.last_planning_timings))
+    finally:
+        CK.restore_paule_state(paule, state)
+    (one, _s1, w1, _l1, _t1), (two, shapes, w2, launches, t2) = runs.values()
+    errs = {"planned_cp": max_rel(two["planned_cp"], one["planned_cp"])}
+    for key in ("prod_loss_curve", "prod_semvec_loss_curve",
+                "pred_model_loss"):
+        errs[key] = max_rel(two[key], one[key])
+    errs["sub_losses"] = max(
+        max_rel(getattr(a, f), getattr(b, f))
+        for a, b in zip(two["sub_losses"], one["sub_losses"])
+        for f in a._fields)
+    first_err = max(max_rel(getattr(two["sub_losses"][0], f)[0],
+                            getattr(one["sub_losses"][0], f)[0])
+                    for f in two["sub_losses"][0]._fields)
+    print(f"  plan_batch_resynth unsharded: {w1:.3f} s, {8 / w1:.2f} "
+          f"utterances per s; dp=2 on one card: {w2:.3f} s, {8 / w2:.2f} "
+          f"utterances per s (main path's warm plan_resynth: "
+          f"{1 / main_times['wall']:.2f} per s)")
+    print("  dp=2 phases: " + ", ".join(f"{k} {v:.3f} s"
+                                        for k, v in t2.items()))
+    print(f"  dp=2 against unsharded: first planning step's sub-losses max "
+          f"rel err {first_err:.3e} (tol {SHARD_RTOL}); the whole run, not "
+          "held: " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+          + "; its first outer iteration's sub-losses "
+          + _step_errs(two["sub_losses"][0], one["sub_losses"][0]))
+    print(f"  dp=2 launches: {launches}; by kernel and (T, B, H): "
+          + ", ".join(f"{k[0]} {k[1:]} {n}" for k, n in shapes.items()))
+    ok = (exact_err <= SHARD_RTOL and first_err <= SHARD_RTOL and ok_train
+          and all(shapes.get((name, t, 4, H), 0) > 0 for name, t in (
+              ("lstm_fwd", 402), ("lstm_bwd", 402), ("lstm_stack2_fwd", 201),
+              ("lstm_stack2_bwd", 201))))
+    if not ok:
+        print("sharded path: disagrees with the unsharded plans, or B1-B4 "
+              "did not run at the shards' batch of 4", file=sys.stderr)
+    return ok
+
+
+def check_reference_bridge():
+    """Item 12: the librosa, soundfile and toml stand-ins installed; each
+    librosa stand-in against the port's own function on a seeded signal
+    (float64, host).  -> ok."""
+    before = set(sys.modules)
+    RB.install_shims()
+    added = sorted(set(sys.modules) - before)
+    import librosa
+
+    y = np.random.default_rng(9).normal(size=44100 // 2) * 0.1
+    amp = librosa.feature.melspectrogram(
+        y=y, sr=44100, n_fft=1024, hop_length=220, n_mels=60, power=1.0,
+        fmin=10, fmax=12000)
+    own = MEL.mel_amplitude_44100(torch.as_tensor(y)).numpy().T
+    errs = {
+        "melspectrogram": max_rel(amp, own),
+        "amplitude_to_db": max_rel(
+            librosa.amplitude_to_db(amp, ref=0.15).T,
+            MEL.melspec_44100(torch.as_tensor(y)).numpy()),
+        "resample": max_rel(
+            librosa.resample(y, orig_sr=44100, target_sr=16000),
+            resample(y, 44100, 16000)),
+        "mel_to_audio": max_rel(
+            librosa.feature.inverse.mel_to_audio(
+                amp[:, :40], sr=44100, n_fft=1024, hop_length=220),
+            GL.mel_amplitude_to_audio(amp[:, :40].T, device="cpu",
+                                      dtype=torch.float64))}
+    print(f"  stand-ins installed: {added}; reference_available(): "
+          f"{RB.reference_available()}; against the port's own functions, "
+          "max rel err: " + ", ".join(f"{k} {v:.1e}"
+                                      for k, v in errs.items()))
+    ok = max(errs.values()) == 0.0
+    if not ok:
+        print("reference bridge: a stand-in differs from the port's "
+              "function", file=sys.stderr)
+    return ok
+
+
 def header(name, t_start):
     """A phase's heading, with the seconds since the script started."""
     print(f"{name} ({time.perf_counter() - t_start:.1f} s in):")
@@ -1747,7 +2205,8 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(P.card_line())
+    card = P.card_line()
+    print(card)
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -1760,6 +2219,9 @@ def main():
     ok_c, core = check_core(dev, gen, 402, 1)
     # B=8: continue-learning's training batch, T=402 for the forward model
     ok_c8, core8 = check_core(dev, gen, 402, 8)
+    # B=4: a shard of batched planning's 8 utterances over dp=2, and its
+    # training batches of 8 split in two
+    ok_c4, core4 = check_core(dev, gen, 402, 4)
     ok_s1, stack = check_stack2(dev, gen, 201, 1)
     ok_s4, stack4 = check_stack2(dev, gen, 201, 4)
     # B=24: the produced-audio metrics at the default budget (24 logged
@@ -1801,12 +2263,12 @@ def main():
         ok_train = ok_train and ok_t
     ok_edges = check_edges(dev, gen)
     ok_one = check_one_kernel_per_call(dev, gen)
-    ok = (ok_c and ok_c8 and ok_s1 and ok_s4 and ok_s24 and ok_s8 and ok_ci8
-          and ok_ci1 and ok_tube and ok_t1 and ok_t24 and ok_train and ok_edges
-          and ok_one)
+    ok = (ok_c and ok_c8 and ok_c4 and ok_s1 and ok_s4 and ok_s24 and ok_s8
+          and ok_ci8 and ok_ci1 and ok_tube and ok_t1 and ok_t24 and ok_train
+          and ok_edges and ok_one)
     results = {**core, **stack}
     for name in core:
-        merge_errors(name, results, core8, core_inv8, core_inv1,
+        merge_errors(name, results, core8, core4, core_inv8, core_inv1,
                      *tube.values(),
                      *train_core.values())
     for name in stack:
@@ -1814,6 +2276,7 @@ def main():
                      tstack24, *train_stack.values())
     print_times("", results)
     print_times(" T=402 B=8", core8)
+    print_times(" T=402 B=4", core4)
     print_times(" T=201 B=8", core_inv8)
     print_times(" T=201 B=1", core_inv1)
     print_times(" B=4", stack4)
@@ -1829,8 +2292,13 @@ def main():
     header("ceiling probes", t_start)
     ok_p, probe, probe_launches = run_probes()
 
-    header("main path", t_start)
     target = synth_target(402, seed=0)
+    header(f"release fallback (F1), {card}", t_start)
+    ok_f1 = check_release_fallback(synth_target(42, seed=1))
+    header(f"Griffin-Lim (F2), {card}", t_start)
+    ok_f2 = check_griffin_lim(target)
+
+    header("main path", t_start)
     t0 = time.perf_counter()
     paule = Paule(seed=7)
     print(f"Paule() on {paule.device}: {time.perf_counter() - t0:.1f} s")
@@ -1841,10 +2309,14 @@ def main():
                 "pred": core8["lstm_fwd"]["ms"] + core8["lstm_bwd"]["ms"],
                 "inv": (core_inv8["lstm_fwd"]["ms"]
                         + core_inv8["lstm_bwd"]["ms"])})
+        header(f"synthesis overlapped with planning (8e), {card}", t_start)
+        ok_ovl = drive_overlap(paule, target)
         header("semvec path", t_start)
         ok_sem = drive_semvec(paule, target)
         header("batched path", t_start)
         ok_bat = drive_batched(paule, main_times)
+        header(f"batched path over a mesh (item 11), {card}", t_start)
+        ok_dp = drive_sharded(paule, main_times)
         header("iterative path", t_start)
         ok_it = drive_iterative(paule)
         header("HTTP service", t_start)
@@ -1864,6 +2336,8 @@ def main():
         ok_pre, _pre_shapes = drive_pretrain(tmp)
     header("model zoo, one Adam step each", t_start)
     ok_zoo, _zoo_shapes = drive_zoo(dev)
+    header("reference bridge (item 12)", t_start)
+    ok_rb = check_reference_bridge()
     header("card against the CPU", t_start)
     ok_cpu = check_against_cpu(False)
     ok_cpu_cl = check_against_cpu(True)
@@ -1875,7 +2349,8 @@ def main():
     ok = (ok and ok_p and ok_plan and ok_cl and ok_sem and ok_som and ok_sc
           and ok_phy and ok_bat and ok_it and ok_srv and ok_cli and ok_pre
           and ok_zoo and ok_cpu and ok_cpu_cl and ok_cpu_sem and ok_cpu_som
-          and ok_cpu_bat and ok_cpu_pre and ok_cpu_phy)
+          and ok_cpu_bat and ok_cpu_pre and ok_cpu_phy and ok_f1 and ok_f2
+          and ok_ovl and ok_dp and ok_rb)
 
     kernels = []
     for k in K.KERNELS:

@@ -19,12 +19,16 @@ chunked planner of long utterances; ``plot``, the mel panels of each
 outer iteration (:mod:`paule_tpu_torch.visualize`).  Several utterances
 plan as one batch through :mod:`paule_tpu_torch.parallel.batched`.
 
-Synthesis, the produced-audio metrics and continue-learning run
-synchronously after each outer iteration's planning segment; the JAX
-package's overlap and deferred-fetch machinery is numerically exact there
-(``paule_tpu/api.py:122-146``, ``:935-955``), so the results are the same.
+Synthesis overlaps planning (``plan_overlap``, as in the JAX package,
+``paule_tpu/api.py:988-1085``): each outer iteration plans in a few
+chunks of whole logging segments, and a chunk's snapshots synthesise on a
+host thread while the host queues the next chunk's kernels.  The
+produced-audio metrics are fetched after the next iteration's planning is
+queued (``defer_metrics_fetch``).  Both change only when work happens:
+the results equal the single-segment path's bit for bit.
 """
 
+import concurrent.futures
 import contextlib
 import os
 import pickle
@@ -59,7 +63,8 @@ from .planning.results import (BestSynthesisAcoustic, BestSynthesisSemantic,
                                PlanningResultsWithSpeechClassifier)
 from .planning.trainer import (ModelTrainer, ReplayBuffer,
                                create_epoch_batches, train_epochs)
-from .release import load_into, load_release
+from . import release as REL
+from .release import load_into
 from .spectral import SpectralForwardModel
 
 #: model key -> (converter kind, sub-directory of a reference
@@ -93,6 +98,74 @@ def _np(t):
     return t.detach().cpu().numpy().astype(np.float64)
 
 
+class _HostCopy:
+    """Host copies of a dict of tensors (``None`` values stay ``None``).
+
+    With ``non_blocking`` and tensors on a CUDA device, each tensor is
+    copied into a pinned host buffer without blocking the host, and a CUDA
+    event is recorded after the copies; :meth:`get` waits on that event
+    before it reads a buffer (a pinned buffer read before its copy has
+    completed holds stale data).  Otherwise the tensors are copied to the
+    host at once."""
+
+    def __init__(self, tensors, non_blocking):
+        self._event = None
+        if non_blocking and any(t is not None and t.is_cuda
+                                for t in tensors.values()):
+            self._host = {k: None if t is None else torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                    t, non_blocking=True) for k, t in tensors.items()}
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = {k: None if t is None else _np(t)
+                          for k, t in tensors.items()}
+
+    def get(self, key):
+        """The float64 numpy array of ``key``, or ``None``."""
+        if self._event is None:
+            return self._host[key]
+        self._event.synchronize()
+        t = self._host[key]
+        return None if t is None else _np(t)
+
+    def all(self):
+        """{key: :meth:`get` of key}."""
+        return {k: self.get(k) for k in self._host}
+
+
+def overlap_chunks(n_inner, log_ii, n_chunks):
+    """The ``[start, end)`` inner steps of each planning chunk of an outer
+    iteration (``paule_tpu/api.py:1004-1020``): ``n_chunks`` chunks of
+    whole ``log_ii`` segments, the unlogged remainder ``n_inner % log_ii``
+    in the last; one chunk when ``n_chunks < 2`` or fewer than two steps
+    are logged."""
+    n_segments = n_inner // log_ii
+    if n_chunks < 2 or n_segments < 2:
+        return [(0, n_inner)]
+    per_chunk = -(-n_segments // n_chunks) * log_ii
+    chunks, c0 = [], 0
+    while c0 < n_inner:
+        c1 = min(c0 + per_chunk, n_inner)
+        if n_inner - c1 < log_ii:
+            c1 = n_inner
+        chunks.append((c0, c1))
+        c0 = c1
+    return chunks
+
+
+def _gather(fetches):
+    """The chunks' host logs (:class:`_HostCopy`), joined along the logged
+    steps: the first axis, and the second of ``subs`` (fields, steps)."""
+    host = {}
+    for fetch in fetches:
+        for key, value in fetch.all().items():
+            if value is not None:
+                host.setdefault(key, []).append(value)
+    return {k: np.concatenate(v, axis=1 if k == "subs" else 0)
+            for k, v in host.items()}
+
+
 class Paule:
     """The predictive, inverse and embedder models, the cp and mel
     generators, the predictive and inverse models' continue-learning
@@ -121,16 +194,18 @@ class Paule:
     plain versions).  ``dtype=None`` means float32.
 
     Weights (``paule_tpu/api.py:322-395``): ``pretrained_dir=None`` loads
-    the in-repo release; ``"random"`` gives a seeded random initialisation
-    drawn from :attr:`generator` (the port's own values, not JAX's); a
-    path reads a reference ``pretrained_models/`` tree of ``.pt`` state
-    dicts, a model whose file is missing or does not convert falling back
-    to the seeded random initialisation, and a directory that does not
-    exist raises ``FileNotFoundError``.  ``pred_model``, ``inv_model``,
-    ``embedder``, ``cp_gen_model`` and ``mel_gen_model`` inject parameter
-    trees in the JAX package's layout (nested dicts and lists of arrays),
-    which take precedence.  The optimizer arguments are accepted and
-    ignored, as in the JAX package.
+    the in-repo release, or, when it is missing or under
+    ``PAULE_TPU_NO_RELEASE=1``, falls back to the seeded random
+    initialisation with a one-time hint; ``"random"`` gives a seeded
+    random initialisation drawn from :attr:`generator` (the port's own
+    values, not JAX's); a path reads a reference ``pretrained_models/``
+    tree of ``.pt`` state dicts, a model whose file is missing or does not
+    convert falling back to the seeded random initialisation, and a
+    directory that does not exist raises ``FileNotFoundError``.
+    ``pred_model``, ``inv_model``, ``embedder``, ``cp_gen_model`` and
+    ``mel_gen_model`` inject parameter trees in the JAX package's layout
+    (nested dicts and lists of arrays), which take precedence.  The
+    optimizer arguments are accepted and ignored, as in the JAX package.
 
     ``plant`` is the synthesizer planning drives: an object with
     ``speak(cp (T, 30)) -> (audio, sr)`` and, for one call per outer
@@ -143,11 +218,20 @@ class Paule:
     by silence and planning goes on; ``"raise"`` raises.
 
     ``synthesis_async=False`` synthesises trajectory by trajectory through
-    ``plant.speak``, as the JAX package does.  ``plan_overlap`` is
-    accepted: the port runs synthesis and metrics after each outer
-    iteration's planning segment, synchronously, until ROADMAP.md item 8e;
-    the JAX package's overlap is numerically exact
-    (``paule_tpu/api.py:122-138``), so the results do not depend on it.
+    ``plant.speak``, as the JAX package does.  ``plan_overlap`` (default
+    ``True``: two chunks; an int: that many; ``False`` or 1: one segment)
+    plans each outer iteration in chunks of whole ``log_ii`` segments, the
+    unlogged remainder in the last; each chunk's snapshots synthesise on
+    a host thread while the next chunks plan, and
+    ``last_planning_timings["synthesis"]`` keeps only the part that did
+    not overlap (``paule_tpu/api.py:122-149``).  It applies with
+    ``synthesis_async`` and more than one logged step.  Two attribute
+    toggles, both ``True`` by default: ``async_chunk_fetch`` copies each
+    chunk's logs to pinned host memory without blocking the host, and
+    ``defer_metrics_fetch`` (with continue-learning and without
+    ``verbose``) fetches an iteration's produced-audio metrics only after
+    the next iteration's planning is queued.  None of the three changes a
+    result.
 
     ``continue_data`` seeds the replay buffer: a mapping from the columns
     of :data:`~paule_tpu_torch.planning.trainer.COLUMNS` to equal-length
@@ -168,10 +252,9 @@ class Paule:
                  seed=20200905, dtype=None, synthesis_async=True,
                  synthesis_error="raise", physical_forward=False,
                  speaker="default", plan_overlap=True, plant=None):
-        # the optimizers are made here; planning runs without overlap
-        # (class docstring)
+        # the optimizers are made here
         del pred_optimizer, inv_optimizer, tube_optimizer, tube_mel_optimizer
-        del speech_classifier_optimizer, plan_overlap
+        del speech_classifier_optimizer
         if use_somatosensory_feedback and use_speech_classifier:
             raise ValueError(
                 "at the moment you have to choose either to use "
@@ -198,6 +281,12 @@ class Paule:
         self.use_somatosensory_feedback = use_somatosensory_feedback
         self.synthesis_async = synthesis_async
         self.synthesis_error = synthesis_error
+        #: chunks of an outer iteration's planning (class docstring)
+        self.plan_overlap = plan_overlap
+        #: copy each chunk's logs to the host without blocking it
+        self.async_chunk_fetch = True
+        #: fetch the produced metrics after the next planning is queued
+        self.defer_metrics_fetch = True
         #: the port's randomness: the random initialisation and the
         #: generators' noise (CPU, so that a seed draws the same values
         #: for every device)
@@ -269,6 +358,10 @@ class Paule:
         self.synth_pool = synth.SynthPool(size=min(8, os.cpu_count() or 2),
                                           speaker_path=speaker)
         self.plant = plant if plant is not None else self.synth_pool
+        # the chunks' synthesis; one worker, since a plant's synthesizer
+        # instances serve one batch at a time
+        self._executor = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="paule-synthesis")
         self.best_synthesis_acoustic = None
         self.best_synthesis_semantic = None
         if use_somatosensory_feedback:
@@ -278,6 +371,7 @@ class Paule:
         self.last_planning_timings = None
 
     def close(self):
+        self._executor.shutdown(wait=True)
         self.synth_pool.close()
 
     # ------------------------------------------------------------------
@@ -288,11 +382,16 @@ class Paule:
     def _resolve_weights(pretrained_dir):
         """-> {model key: JAX-layout tree} of the weights that
         ``pretrained_dir`` names; a missing key means a random
-        initialisation."""
+        initialisation.  ``None`` without an available release (or under
+        ``PAULE_TPU_NO_RELEASE=1``) gives ``{}`` and a one-time hint
+        (``paule_tpu/api.py:322-343``)."""
         if pretrained_dir == "random":
             return {}
         if pretrained_dir is None:
-            return load_release()[0]
+            if REL.release_available():
+                return REL.load_release()[0]
+            REL.print_fallback_hint_once()
+            return {}
         if not os.path.isdir(pretrained_dir):
             raise FileNotFoundError(
                 f"pretrained_dir {pretrained_dir!r} does not exist")
@@ -414,12 +513,13 @@ class Paule:
         return hasattr(self.plant, "speak_and_extract_batch"
                        if self.use_somatosensory_feedback else "speak_batch")
 
-    def _synthesize(self, snapshots):
+    def _synthesize(self, snapshots, first=0):
         """Normalised cp ``(L, T, 30)`` -> audio ``(L, n)``, sr, and the
         normalised tubes ``(L, T, 10)`` under the somatosensory variant
         (else ``None``): one batch call when the plant has it, else one
         call per trajectory; a failed snapshot raises, or becomes silence
-        (``paule_tpu/api.py:582-656``, ``:1153-1194``)."""
+        (``paule_tpu/api.py:582-656``, ``:1153-1194``).  Messages number
+        the snapshots from ``first``."""
         snapshots = np.asarray(snapshots, dtype=np.float64)
         n_frames = snapshots.shape[1]
         somato = self.use_somatosensory_feedback
@@ -431,14 +531,14 @@ class Paule:
                     cps)
             else:
                 audio, sr, errors = self.plant.speak_batch(cps)
-            for i, sig in enumerate(audio):
+            for i, sig in enumerate(audio, first):
                 tube = None
-                bad = errors[i] != 0 or not np.isfinite(sig).all()
+                bad = errors[i - first] != 0 or not np.isfinite(sig).all()
                 if not bad and somato:
-                    tube = synth.tube_features(infos[i])
+                    tube = synth.tube_features(infos[i - first])
                     bad = not np.isfinite(tube).all()
                 if bad:
-                    why = f"error code {int(errors[i])}"
+                    why = f"error code {int(errors[i - first])}"
                     if self.synthesis_error == "raise":
                         raise ValueError(
                             f"synthesis of snapshot {i} failed ({why}; -1 = "
@@ -447,7 +547,7 @@ class Paule:
                 sigs.append(sig)
                 tubes.append(tube)
         else:
-            for i, snapshot in enumerate(snapshots):
+            for i, snapshot in enumerate(snapshots, first):
                 try:
                     sig, sr, tube = self._speak(snapshot)
                 except Exception as exc:  # noqa: BLE001  (the policy decides)
@@ -460,7 +560,7 @@ class Paule:
         return np.stack(sigs), sr, np.stack(tubes) if somato else None
 
     def _prod_metrics(self, sigs, snapshots, prod_tubes, target_mel,
-                      target_semvec, want_semvec):
+                      target_semvec, want_semvec, fetch=True):
         """Produced-audio metrics of all logged snapshots in one batch, the
         models in eval mode (``paule_tpu/api.py:453-512``): mels, mel
         losses and, with ``want_semvec``, semvecs and their losses; the
@@ -469,8 +569,9 @@ class Paule:
         against the produced ``prod_tubes``, both tubes' tube->mel mels,
         the produced one's mel loss and, with ``want_semvec``, the tube
         embedder's semvec of the produced tubes and its loss.  -> (those
-        as float64 numpy, {"prod_mel", "prod_tube"} on the device, which
-        continue-learning trains on)."""
+        as float64 numpy, or as tensors on the device unless ``fetch``,
+        {"prod_mel", "prod_tube"} on the device, which continue-learning
+        trains on)."""
         with torch.no_grad():
             prod_mel = normalize_mel(melspec_44100(self._tensor(sigs)))
             out = {"prod_mel": prod_mel,
@@ -502,7 +603,7 @@ class Paule:
                     out["prod_tube_semvec_loss"] = (
                         TUBE_SEMANTIC_WEIGHT * rmse_rows(semvec,
                                                          target_semvec))
-        return {k: _np(v) for k, v in out.items()}, dev
+        return ({k: _np(v) for k, v in out.items()} if fetch else out), dev
 
     def create_epoch_batches(self, df_length, batch_size, shuffle=True,
                              same_size_batching=False,
@@ -515,6 +616,58 @@ class Paule:
             df_length, batch_size, shuffle=shuffle,
             same_size_batching=same_size_batching,
             training_length_dict=training_length_dict, rng=self._py_rng)
+
+    def _n_chunks(self):
+        """The planning chunks per outer iteration that ``plan_overlap``
+        asks for (1: no overlap); none without ``synthesis_async``."""
+        if not self.synthesis_async or not self.plan_overlap:
+            return 1
+        return 2 if self.plan_overlap is True else int(self.plan_overlap)
+
+    def _plan(self, models, xx, optimizer, chunks, target_mel, target_semvec,
+              *, objective, constraints, log_ii, want_semvec, log_gradients,
+              verbose):
+        """One outer iteration's planning of the leaf ``xx``, in ``chunks``
+        (:func:`overlap_chunks`), every chunk's constraints anchored to the
+        trajectory at the iteration's start.  After each chunk its logs
+        start their way to the host (:class:`_HostCopy`; without blocking
+        the host under ``async_chunk_fetch``) and, with more than one chunk,
+        the synthesis of its snapshots is submitted to the executor, to run
+        while the host queues the next chunks.  The semvecs of the logged
+        mels that only ``log_semantics`` asks for are embedded once, after
+        the last chunk, as one segment would.  -> (the logged snapshots
+        ``(L, T, 30)`` on the device, the host copies, the synthesis
+        futures)."""
+        overlap = len(chunks) > 1
+        xx_start = xx.detach().clone()
+        fetches, jobs, snaps, mels = [], [], [], []
+        for c0, c1 in chunks:
+            seg = engine.plan_segment(
+                models, xx, optimizer, target_mel, target_semvec,
+                n_steps=c1 - c0, objective=objective, log_semantics=False,
+                constraints=constraints, log_every=log_ii, xx_start=xx_start)
+            semvec = seg["pred_semvec"]
+            fetch = _HostCopy({
+                "subs": torch.stack(list(seg["sub_losses"])),
+                "xx_pre": seg["xx_pre"][:, 0],
+                "pred_mel": seg["pred_mel"][:, 0],
+                "pred_semvec": None if semvec is None else semvec[:, 0],
+                "grads": seg["grads"] if log_gradients else None,
+                "grad_max": seg["grad_max"] if verbose else None,
+                "grad_min": seg["grad_min"] if verbose else None},
+                non_blocking=overlap and self.async_chunk_fetch)
+            if overlap:
+                jobs.append(self._executor.submit(
+                    lambda f=fetch, first=sum(len(x) for x in snaps):
+                    self._synthesize(f.get("xx_pre"), first)))
+            fetches.append(fetch)
+            snaps.append(seg["xx_pre"][:, 0])
+            mels.append(seg["pred_mel"])
+        if want_semvec and semvec is None:
+            semvecs = engine.embed_logged(models, torch.cat(mels))
+            fetches.append(_HostCopy({"pred_semvec": semvecs[:, 0]},
+                                     non_blocking=False))
+        return torch.cat(snaps), fetches, jobs
 
     def plan_resynth(self, *, learning_rate_planning=0.01,
                      learning_rate_learning=0.001,
@@ -721,26 +874,39 @@ class Paule:
                 logs[k] = []
         optimizer = engine.make_optimizer(xx, learning_rate_planning)
         n_segments = n_inner // log_ii
+        chunks = overlap_chunks(n_inner, log_ii, self._n_chunks())
         sig, sr, prod_mel = initial_sig, initial_sr, initial_prod_mel
         prod_tube = initial_prod_tube
         timings = {"planning": 0.0, "synthesis": 0.0, "metrics": 0.0,
                    "continue_learning": 0.0}
-        start = time.perf_counter()
+        # (host copy of an iteration's produced metrics, what logs them),
+        # flushed once the next iteration's planning is queued
+        # (paule_tpu/api.py:1365-1400)
+        defer = (self.defer_metrics_fetch and continue_learning
+                 and n_segments > 0 and not verbose)
+        deferred = []
 
+        def flush():
+            with _phase(timings, "metrics"):
+                while deferred:
+                    copy, finish = deferred.pop(0)
+                    finish(copy.all())
+
+        start = time.perf_counter()
         for ii_outer in range(n_outer):
             with _phase(timings, "planning"):
-                seg = engine.plan_segment(
-                    models, xx, optimizer, target_mel_dev, target_semvec_dev,
-                    n_steps=n_inner, objective=objective,
-                    log_semantics=log_semantics, constraints=constraints,
-                    log_every=log_ii)
-                subs = engine.SubLosses(*(_np(s) for s in seg["sub_losses"]))
-                snapshots = _np(seg["xx_pre"][:, 0])
-                pred_mels = _np(seg["pred_mel"][:, 0])
-                pred_semvecs = (_np(seg["pred_semvec"][:, 0]) if want_semvec
-                                else None)
-                grads = _np(seg["grads"]) if log_gradients else None
-                grad_ext = (_np(seg["grad_max"]), _np(seg["grad_min"]))
+                snaps_dev, fetches, jobs = self._plan(
+                    models, xx, optimizer, chunks, target_mel_dev,
+                    target_semvec_dev, objective=objective,
+                    constraints=constraints, log_ii=log_ii,
+                    want_semvec=want_semvec, log_gradients=log_gradients,
+                    verbose=verbose)
+            flush()
+            with _phase(timings, "planning"):
+                host = _gather(fetches)
+                subs = engine.SubLosses(*host["subs"])
+                snapshots, pred_mels = host["xx_pre"], host["pred_mel"]
+                pred_semvecs = host.get("pred_semvec")
                 for s in range(n_segments):
                     logs["planned_loss_steps"].append(float(subs.total[s]))
                     logs["planned_mel_loss_steps"].append(
@@ -759,11 +925,11 @@ class Paule:
                         logs["pred_tube_semvec_loss_steps"].append(
                             float(subs.tube_semvec_loss[s]))
                     if log_gradients:
-                        logs["grad_steps"].append(grads[s])
+                        logs["grad_steps"].append(host["grads"][s])
                     if verbose:
-                        if grad_ext[0][s] > 10:
+                        if host["grad_max"][s] > 10:
                             print("WARNING: gradient is larger than 10")
-                        if grad_ext[1][s] < -10:
+                        if host["grad_min"][s] < -10:
                             print("WARNING: gradient is smaller than -10")
                         print(f"Iteration {s * log_ii + log_ii - 1}")
                         print("Planned Loss: ", float(subs.total[s]))
@@ -774,35 +940,57 @@ class Paule:
                               float(subs.local_linear_loss[s]))
 
             with _phase(timings, "synthesis"):
-                sigs, sr, prod_tubes = self._synthesize(snapshots)
+                if jobs:
+                    # what did not overlap the planning
+                    parts = [job.result() for job in jobs]
+                    sigs = np.concatenate([p[0] for p in parts])
+                    sr = parts[-1][1]
+                    prod_tubes = (np.concatenate([p[2] for p in parts])
+                                  if somato else None)
+                else:
+                    sigs, sr, prod_tubes = self._synthesize(snapshots)
                 sig = sigs[-1]
                 if somato:
                     prod_tube = prod_tubes[-1]
                 if log_signals:
                     logs["sig_steps"].extend(list(sigs))
 
-            with _phase(timings, "metrics"):
-                pm, prod_dev = self._prod_metrics(
-                    sigs, seg["xx_pre"][:, 0], prod_tubes, target_mel_dev,
-                    target_semvec_dev, want_semvec)
+            def finish(pm, snapshots=snapshots, sigs=sigs,
+                       prod_tubes=prod_tubes, pred_mels=pred_mels,
+                       pred_semvecs=pred_semvecs, ii_outer=ii_outer):
+                """Log an iteration's produced metrics ``pm`` (host);
+                bound to its own iteration's values, since a deferred call
+                runs in the next one."""
+                nonlocal prod_mel
                 prod_mel = pm["prod_mel"][-1]
                 self._log_produced(logs, pm, snapshots, sigs, prod_tubes,
                                    pred_mels, pred_semvecs, want_semvec,
                                    verbose)
                 if log_cps:
                     logs["cp_steps"].append(list(snapshots))
-            if plot and n_segments:
-                from . import visualize
+                if plot and n_segments:
+                    from . import visualize
 
-                visualize.plot_mels(
-                    True if plot is True else f"{plot}_{ii_outer:03d}.png",
-                    target_mel[0], initial_pred_mel, initial_prod_mel,
-                    pred_mels[-1], pm["prod_mel"][-1])
+                    visualize.plot_mels(
+                        True if plot is True
+                        else f"{plot}_{ii_outer:03d}.png",
+                        target_mel[0], initial_pred_mel, initial_prod_mel,
+                        pred_mels[-1], pm["prod_mel"][-1])
+
+            with _phase(timings, "metrics"):
+                pm_dev, prod_dev = self._prod_metrics(
+                    sigs, snaps_dev, prod_tubes, target_mel_dev,
+                    target_semvec_dev, want_semvec, fetch=False)
+                copy = _HostCopy(pm_dev, non_blocking=defer)
+                if defer:
+                    deferred.append((copy, finish))
+                else:
+                    finish(copy.all())
 
             if continue_learning and n_segments:
                 with _phase(timings, "continue_learning"):
                     self._continue_learning(
-                        seg["xx_pre"][:, 0], prod_dev["prod_mel"],
+                        snaps_dev, prod_dev["prod_mel"],
                         prod_dev["prod_tube"], target_semvec_dev[0], logs,
                         continue_learning_inv=continue_learning_inv,
                         continue_learning_tube=(continue_learning_tube
@@ -811,6 +999,7 @@ class Paule:
                         add_training_data_inv=add_training_data_inv,
                         n_batches=n_batches, batch_size=batch_size,
                         n_epochs=n_epochs, verbose=verbose)
+        flush()
 
         # ---------------- final results ----------------
         with torch.no_grad():

@@ -5,9 +5,12 @@
    regularised least-squares pseudo-inverse, clipped at 0 (numpy, float64).
 2. Griffin-Lim phase reconstruction on the device: 32 iterations with
    momentum 0.99, each an inverse STFT (``torch.fft.irfft`` and an
-   overlap-add by ``index_add_``, normalised by the precomputed sum of the
-   squared window) and an STFT (``torch.fft.rfft``), both with the periodic
-   Hann window.
+   overlap-add, normalised by the precomputed sum of the squared window)
+   and an STFT (``torch.fft.rfft``), both with the periodic Hann window.
+   The overlap-add gathers each sample's (at most ``ceil(N_FFT / HOP)``)
+   frame contributions and sums them in frame order, without atomics, so
+   that it is bit-reproducible on the card and sums in the order of a
+   sequential scatter-add on the CPU.
 3. 55 zero samples on each side, so that ``frames`` mel frames give
    ``220 * (frames - 1) + 110`` samples, the length the synthesizer gives
    for a trajectory of ``2 * frames`` cp frames.
@@ -47,25 +50,42 @@ def _window_sum(frames):
     return np.where(wss > 1e-10, wss, 1.0)
 
 
+#: the most frames that overlap one sample
+N_OVERLAP = -(-N_FFT // HOP)
+
+
+@functools.lru_cache(maxsize=8)
+def _overlap_index(frames):
+    """``(total, N_OVERLAP)`` positions in the flattened ``(frames, N_FFT)``
+    frames of each output sample's contributions, in frame order; missing
+    ones point at ``frames * N_FFT``, one past the end (a zero)."""
+    n = np.arange(HOP * (frames - 1) + N_FFT)[:, None]
+    f = np.maximum(0, (n - N_FFT + HOP) // HOP) + np.arange(N_OVERLAP)
+    valid = (f * HOP <= n) & (f < frames)
+    return np.where(valid, f * N_FFT + n - f * HOP, frames * N_FFT)
+
+
 class _Istft:
     """Inverse STFT of ``frames`` frames, cut to ``length`` samples, with
     its window, overlap-add index and normaliser on the device."""
 
     def __init__(self, frames, length, dtype, device):
         self.length = length
-        self.total = HOP * (frames - 1) + N_FFT
         self.win = torch.as_tensor(_hann_periodic(), dtype=dtype,
                                    device=device)
-        self.idx = (torch.arange(frames, device=device)[:, None] * HOP
-                    + torch.arange(N_FFT, device=device)[None, :]).reshape(-1)
+        self.idx = torch.as_tensor(_overlap_index(frames), device=device)
         self.wss = torch.as_tensor(_window_sum(frames), dtype=dtype,
                                    device=device)
 
     def __call__(self, spec):
         time_frames = torch.fft.irfft(spec, N_FFT, dim=-1) * self.win
-        y = torch.zeros(self.total, dtype=self.win.dtype,
-                        device=self.win.device)
-        y.index_add_(0, self.idx, time_frames.reshape(-1))
+        flat = torch.cat([time_frames.reshape(-1),
+                          time_frames.new_zeros(1)])
+        parts = flat[self.idx]
+        # 0 + the first + the second ..., as a scatter-add from zeros
+        y = torch.zeros_like(parts[:, 0])
+        for j in range(N_OVERLAP):
+            y = y + parts[:, j]
         pad = N_FFT // 2
         return (y / self.wss)[pad:pad + self.length]
 
@@ -96,6 +116,18 @@ def griffin_lim(mag, *, n_iter=N_ITER, length=None):
     return istft(mag_c * angles)
 
 
+def mel_amplitude_to_audio(amplitude, *, device, dtype):
+    """Amplitude mel ``(frames, 60)`` (numpy) -> float64 numpy signal of
+    ``220 * (frames - 1)`` samples: steps 1 and 2 of the module
+    docstring, Griffin-Lim on ``device`` in ``dtype``."""
+    lin = np.maximum(np.asarray(amplitude, dtype=np.float64) @ _mel_pinv(),
+                     0.0)  # (frames, n_bins)
+    length = HOP * (lin.shape[0] - 1)
+    sig = griffin_lim(torch.as_tensor(lin, dtype=dtype, device=device),
+                      length=length)
+    return sig.cpu().numpy().astype(np.float64)
+
+
 def mel_to_sig(mel, *, device, dtype, mel_min=0.0):
     """Normalised log-mel ``(frames, 60)`` (numpy or a tensor) ->
     ``(signal, 44100)``, the signal float64 numpy of ``220 * (frames - 1) +
@@ -104,9 +136,5 @@ def mel_to_sig(mel, *, device, dtype, mel_min=0.0):
         mel = mel.detach().cpu().numpy()
     mel = np.asarray(mel, dtype=np.float64) + mel_min
     amplitude = 10.0 ** (inv_normalize_mel(mel) / 20.0) * DB_REF
-    lin = np.maximum(amplitude @ _mel_pinv(), 0.0)  # (frames, n_bins)
-    length = HOP * (lin.shape[0] - 1)
-    sig = griffin_lim(torch.as_tensor(lin, dtype=dtype, device=device),
-                      length=length)
-    sig = sig.cpu().numpy().astype(np.float64)
+    sig = mel_amplitude_to_audio(amplitude, device=device, dtype=dtype)
     return np.concatenate([np.zeros(55), sig, np.zeros(55)]), SR

@@ -3,8 +3,10 @@
 
 44.1 kHz input; STFT with ``n_fft=1024``, ``hop=220``, periodic Hann window,
 centred with zero padding; amplitude mel spectrogram with 60 Slaney-scale,
-Slaney-normalised filters from 10 Hz to 12 kHz; ``amplitude_to_db`` with
-``ref=0.15``, ``amin=1e-5``, ``top_db=80``; frames on the first axis.  The
+Slaney-normalised filters from 10 Hz to 12 kHz (:func:`mel_amplitude_44100`,
+which the librosa stand-in of :mod:`paule_tpu_torch.reference_bridge`
+shares); ``amplitude_to_db`` with ``ref=0.15``, ``amin=1e-5``,
+``top_db=80``; frames on the first axis.  The
 STFT is a matrix product of the framed signal with the same numpy RFFT
 basis the JAX package builds, then one with the filterbank.
 """
@@ -83,18 +85,26 @@ def rfft_basis():
     return np.concatenate([np.cos(ang) * win, -np.sin(ang) * win], axis=1)
 
 
-def amplitude_to_db(mel):
-    """librosa's ``amplitude_to_db(mel, ref=0.15, amin=1e-5, top_db=80)``,
-    the top-dB floor taken per item over its last two axes."""
-    db = 20.0 * torch.log10(torch.clamp(mel, min=AMIN)) - 20.0 * math.log10(
-        max(DB_REF, AMIN))
-    peak = db.amax(dim=(-2, -1), keepdim=True)
-    return torch.maximum(db, peak - TOP_DB)
+def amplitude_to_db(mel, *, ref=DB_REF, amin=AMIN, top_db=TOP_DB,
+                    per_item=True):
+    """librosa's ``amplitude_to_db(mel, ref, amin, top_db)`` of a
+    non-negative tensor (defaults: the reference's 0.15, 1e-5 and 80); the
+    top-dB floor taken per item over the last two axes, or with
+    ``per_item=False`` over the whole tensor as librosa does; none for
+    ``top_db=None``."""
+    db = 20.0 * torch.log10(torch.clamp(mel, min=amin)) - 20.0 * math.log10(
+        max(ref, amin))
+    if top_db is None:
+        return db
+    peak = db.amax(dim=(-2, -1), keepdim=True) if per_item else db.amax()
+    return torch.maximum(db, peak - top_db)
 
 
-def melspec_44100(y):
-    """44.1 kHz signals ``(..., n)`` (a tensor) -> log-mel dB
-    ``(..., 1 + n // 220, 60)`` in the signal's dtype and device."""
+def mel_amplitude_44100(y):
+    """44.1 kHz signals ``(..., n)`` (a tensor) -> amplitude mel spectrogram
+    ``(..., 1 + n // 220, 60)`` (librosa's ``melspectrogram(power=1.0)``,
+    centred with zero padding, frames first) in the signal's dtype and
+    device."""
     pad = N_FFT // 2
     frames = torch.nn.functional.pad(y, (pad, pad)).unfold(-1, N_FFT, HOP)
     basis = torch.as_tensor(rfft_basis(), dtype=y.dtype, device=y.device)
@@ -102,7 +112,13 @@ def melspec_44100(y):
     n_bins = 1 + N_FFT // 2
     re, im = spec[..., :n_bins], spec[..., n_bins:]
     fb = torch.as_tensor(mel_filterbank(), dtype=y.dtype, device=y.device)
-    return amplitude_to_db(torch.sqrt(re * re + im * im) @ fb)
+    return torch.sqrt(re * re + im * im) @ fb
+
+
+def melspec_44100(y):
+    """44.1 kHz signals ``(..., n)`` (a tensor) -> log-mel dB
+    ``(..., 1 + n // 220, 60)`` in the signal's dtype and device."""
+    return amplitude_to_db(mel_amplitude_44100(y))
 
 
 def librosa_melspec(wav, sample_rate, *, device, dtype):

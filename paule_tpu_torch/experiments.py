@@ -133,7 +133,9 @@ def plan_corpus_batched(paule_model, targets, *, mesh=None, max_batch=8,
     ``max_batch``, and each batch planned by one
     ``batched.plan_batch_resynth(**plan_kwargs)`` call (default
     ``objective="acoustic_semvec"``).  ``semvecs``: optional ``(300,)``
-    target semvecs aligned with ``targets``.
+    target semvecs aligned with ``targets``.  ``mesh``: a
+    :class:`~paule_tpu_torch.parallel.mesh.Mesh` over which each batch
+    that its ``dp`` divides is sharded; other batches run unsharded.
 
     ``pad_to_multiple=k`` appends silence frames (0 in normalised units)
     to each target mel up to a multiple of ``k`` frames, so that near
@@ -174,9 +176,14 @@ def plan_corpus_batched(paule_model, targets, *, mesh=None, max_batch=8,
             if verbose:
                 print(f"planning bucket len={length}: "
                       f"{len(batch_idx)} utterances")
+            # a leftover batch that dp does not divide runs unsharded
+            # (paule_tpu/experiments.py:205-207)
+            batch_mesh = (mesh if mesh is None
+                          or len(batch_idx) % mesh.shape["dp"] == 0
+                          else None)
             out = batched.plan_batch_resynth(
                 paule_model, np.stack([mels[i] for i in batch_idx]), tsem,
-                mesh=mesh, **plan_kwargs)
+                mesh=batch_mesh, **plan_kwargs)
             for j, i in enumerate(batch_idx):
                 n_true = true_frames[i]
                 per = {"planned_cp": out["planned_cp"][j][:2 * n_true],

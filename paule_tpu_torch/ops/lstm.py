@@ -51,6 +51,17 @@ def _on(generator, x):
     return a is None or b is None or a == b
 
 
+def draw_keep_masks(layers, batch, seq, dropout, generator, device=None):
+    """The dropout keep masks of :func:`lstm` over ``layers`` for a batch
+    of ``batch`` sequences of ``seq`` steps: one boolean ``(batch, seq,
+    H)`` tensor per layer boundary, in order, drawn from ``generator`` on
+    ``device`` (default: the generator's)."""
+    device = generator.device if device is None else device
+    return [torch.rand((batch, seq, layer["w_hh"].shape[0]),
+                       generator=generator, device=device) >= dropout
+            for layer in layers[:-1]]
+
+
 def lstm(layers, x, *, dropout=0.0, training=False, generator=None,
          keep_masks=None):
     """Stacked LSTM over a sequence of per-layer parameter dicts.
@@ -60,16 +71,19 @@ def lstm(layers, x, *, dropout=0.0, training=False, generator=None,
     as ``paule_tpu/ops/lstm.py:116-140`` does.  ``dropout`` applies between
     layers only, like ``torch.nn.LSTM(dropout=...)``, as
     ``where(keep, out / (1 - p), 0)`` (``paule_tpu/ops/lstm.py:143-148``).
-    When ``training``, the keep mask of each layer boundary is drawn on
-    ``x``'s device from ``generator``, which must live there (no mask is
-    drawn on the host and copied), or taken from ``keep_masks``, one boolean
-    ``(B, T, H)`` tensor per boundary in order (a mask drawn elsewhere,
-    e.g. JAX's, replayed)."""
+    When ``training``, the keep masks of the layer boundaries are drawn on
+    ``x``'s device from ``generator`` (:func:`draw_keep_masks`), which
+    must live there (no mask is drawn on the host and copied), or taken
+    from ``keep_masks``, one boolean ``(B, T, H)`` tensor per boundary in
+    order (a mask drawn elsewhere, e.g. JAX's, replayed)."""
     n = len(layers)
     dropout_active = dropout > 0.0 and training
-    if dropout_active and keep_masks is None and not _on(generator, x):
-        raise ValueError("dropout in training needs a generator on the "
-                         f"input's device ({x.device}) or keep_masks")
+    if dropout_active and keep_masks is None:
+        if not _on(generator, x):
+            raise ValueError("dropout in training needs a generator on the "
+                             f"input's device ({x.device}) or keep_masks")
+        keep_masks = draw_keep_masks(layers, x.shape[0], x.shape[1],
+                                     dropout, generator, x.device)
     masks = iter(keep_masks or ())
     h_ns, c_ns = [], []
     out = x
@@ -87,12 +101,7 @@ def lstm(layers, x, *, dropout=0.0, training=False, generator=None,
             continue
         out, (h_n, c_n) = lstm_layer(layers[li], out)
         if dropout_active and li < n - 1:
-            if keep_masks is None:
-                keep = torch.rand(out.shape, generator=generator,
-                                  device=out.device) >= dropout
-            else:
-                keep = next(masks)
-            out = torch.where(keep, out / (1.0 - dropout), 0.0)
+            out = torch.where(next(masks), out / (1.0 - dropout), 0.0)
         h_ns.append(h_n)
         c_ns.append(c_n)
         li += 1

@@ -171,10 +171,23 @@ def make_optimizer(xx, lr):
     return torch.optim.Adam([xx], lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+def embed_logged(models, pred_mel):
+    """The embedder's semvecs ``(L, 1, 300)`` of logged mels ``(L, 1, F,
+    60)``, in one batch, for semantics that are only logged."""
+    with torch.no_grad():
+        flat = pred_mel.reshape((-1,) + pred_mel.shape[2:])
+        return models.embedder(flat).reshape(pred_mel.shape[:2] + (-1,))
+
+
 def plan_segment(models, xx, optimizer, target_mel, target_semvec, *,
                  n_steps, objective, log_semantics, constraints,
-                 log_every=None):
+                 log_every=None, xx_start=None):
     """Run ``n_steps`` planning updates on the leaf ``xx`` in place.
+
+    The constraints restore the ``past_len`` leading frames of ``xx_start``
+    (default: ``xx`` at the segment's start); a segment that continues an
+    outer iteration passes the trajectory at the iteration's start, as
+    ``paule_tpu/planning/engine.py`` ``plan_segment_keys`` does.
 
     Returns the logs of the logged steps (indices ``k-1, 2k-1, ...`` for
     ``log_every=k``; every step for ``None``) as device tensors:
@@ -183,7 +196,7 @@ def plan_segment(models, xx, optimizer, target_mel, target_semvec, *,
     semantics are logged), ``grads``, ``grad_max`` and ``grad_min``."""
     log_every = log_every or 1
     n_logged = n_steps // log_every
-    xx_init = xx.detach().clone()
+    xx_init = xx.detach().clone() if xx_start is None else xx_start
     rec = {k: [] for k in ("subs", "xx_pre", "pred_mel", "pred_semvec",
                            "grads")}
     for step in range(n_steps):
@@ -208,10 +221,7 @@ def plan_segment(models, xx, optimizer, target_mel, target_semvec, *,
         pred_semvec = torch.stack(rec["pred_semvec"])
     elif log_semantics:
         # the embedder only logs here: run it once on the logged mels
-        with torch.no_grad():
-            flat = pred_mel.reshape((-1,) + pred_mel.shape[2:])
-            pred_semvec = models.embedder(flat).reshape(
-                pred_mel.shape[:2] + (-1,))
+        pred_semvec = embed_logged(models, pred_mel)
     else:
         pred_semvec = None
     return {"sub_losses": SubLosses(*subs), "xx_pre": torch.stack(

@@ -115,23 +115,56 @@ class ModelTrainer:
         if lr is not None and self.optimizer is not None:
             self.optimizer.param_groups[0]["lr"] = lr
 
-    def train_batch(self, batch_in, batch_out):
+    def train_batch(self, batch_in, batch_out, *, replicas=None):
         """One Adam step on a batch; -> the loss, a detached tensor on the
-        batch's device (no host sync)."""
+        model's device (no host sync).
+
+        With ``replicas`` the batch comes in shards: ``batch_in`` and
+        ``batch_out`` are lists, and shard ``i`` is predicted by
+        ``replicas[i]``, the model itself or a copy of it on the shard's
+        device.  The loss of the whole batch is taken on the model's
+        device, and the gradients that reach the copies are summed into
+        the model's before the step; bringing the copies up to the new
+        weights is the caller's
+        (:func:`paule_tpu_torch.parallel.mesh.sync_replicas`)."""
+        if replicas is None:
+            replicas, batch_in, batch_out = ([self.model], [batch_in],
+                                             [batch_out])
         if self.optimizer is None:
             with torch.no_grad():
-                loss = self.loss_fn(self.model(batch_in), batch_out)
+                loss = self._loss(replicas, batch_in, batch_out,
+                                  batch_out[0].device)
         else:
-            self.model.requires_grad_(True)
-            try:
-                loss = self.loss_fn(self.model(batch_in), batch_out)
-                loss.backward()
-                self.optimizer.step()
-            finally:
-                self.optimizer.zero_grad(set_to_none=True)
-                self.model.requires_grad_(False)
+            loss = self._step(replicas, batch_in, batch_out)
         self.steps += 1
         return loss.detach()
+
+    def _step(self, replicas, batch_in, batch_out):
+        """:meth:`train_batch`'s Adam step; -> the loss."""
+        params = self.optimizer.param_groups[0]["params"]
+        copies = [r for r in dict.fromkeys(replicas) if r is not self.model]
+        for r in (self.model, *copies):
+            r.requires_grad_(True)
+        try:
+            loss = self._loss(replicas, batch_in, batch_out, params[0].device)
+            loss.backward()
+            for r in copies:
+                for p, q in zip(self.model.parameters(), r.parameters()):
+                    grad = q.grad.to(p.device)
+                    p.grad = grad if p.grad is None else p.grad + grad
+            self.optimizer.step()
+        finally:
+            for r in (self.model, *copies):
+                r.zero_grad(set_to_none=True)
+                r.requires_grad_(False)
+        return loss
+
+    def _loss(self, replicas, batch_in, batch_out, device):
+        """The loss of the shards' predictions, joined on ``device``,
+        against their targets."""
+        return self.loss_fn(
+            torch.cat([r(x).to(device) for r, x in zip(replicas, batch_in)]),
+            torch.cat([y.to(device) for y in batch_out]))
 
 
 def train_epochs(trainer, inps, tgts, *, batch_size, n_epochs, rng=random,

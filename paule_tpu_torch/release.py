@@ -4,9 +4,14 @@ the JAX package's parameter trees and the port's modules.
 The release ``paule_tpu/pretrained_weights/paule_tpu_release_v1.npz`` is
 data only: float16 arrays plus a JSON manifest (``__manifest__``) that
 mirrors each model's parameter tree with leaf ids at the leaves.  This is
-the port's own copy of ``paule_tpu/release.py:64-135``; the in-repo file is
+the port's own copy of ``paule_tpu/release.py:38-161``; the in-repo file is
 read in place and never written.  A release the port writes
 (:func:`save_release`) has the same layout, so both packages load it.
+
+``Paule(pretrained_dir=None)`` loads the release when
+:func:`release_available`; otherwise, and under ``PAULE_TPU_NO_RELEASE=1``,
+its models start from the seeded random initialisation and
+:func:`print_fallback_hint_once` says so once per process.
 """
 
 import hashlib
@@ -20,11 +25,41 @@ RELEASE_VERSION = "v1"
 RELEASE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "paule_tpu", "pretrained_weights")
-RELEASE_PATH = os.path.join(RELEASE_DIR,
-                            f"paule_tpu_release_{RELEASE_VERSION}.npz")
+RELEASE_BASENAME = "paule_tpu_release_{version}.npz"
 #: model keys a release may carry (``paule_tpu/release.py`` ``MODEL_KEYS``)
 MODEL_KEYS = ("predictive", "inverse", "embedder", "cp_gan", "mel_gan",
               "speech_classifier", "cp_tube", "tube_mel", "tube_embedder")
+
+_PRINTED_FALLBACK_HINT = False
+
+
+def release_path(version=RELEASE_VERSION):
+    """The in-repo release file of ``version``."""
+    return os.path.join(RELEASE_DIR,
+                        RELEASE_BASENAME.format(version=version))
+
+
+RELEASE_PATH = release_path()
+
+
+def release_available(version=RELEASE_VERSION):
+    """Whether the release file of ``version`` exists; ``False`` under
+    ``PAULE_TPU_NO_RELEASE=1``."""
+    if os.environ.get("PAULE_TPU_NO_RELEASE", "0") == "1":
+        return False
+    return os.path.exists(release_path(version))
+
+
+def print_fallback_hint_once():
+    """Say, once per process, that the models start from the seeded random
+    initialisation (``paule_tpu/release.py:156-161``)."""
+    global _PRINTED_FALLBACK_HINT
+    if not _PRINTED_FALLBACK_HINT:
+        _PRINTED_FALLBACK_HINT = True
+        print("paule_tpu_torch: no pretrained weight release found — models "
+              "start from seeded random init (train your own with "
+              "paule_tpu_torch/tools/train_release_weights.py, or pass "
+              "pretrained_dir=)")
 
 
 def _flatten(tree, prefix, arrays):
@@ -58,14 +93,23 @@ def _unflatten(node, arrays):
     raise ValueError(f"malformed release manifest node: {node!r}")
 
 
-def load_release(path=RELEASE_PATH):
-    """-> ``({model key: parameter tree of numpy arrays}, metadata)``; the
-    arrays keep their stored dtype (float16)."""
-    with np.load(path) as npz:
+def load_release(path=None):
+    """-> ``({model key: parameter tree of numpy arrays}, metadata)`` of the
+    release at ``path`` (default :func:`release_path`); the arrays keep
+    their stored dtype (float16)."""
+    with np.load(path or release_path()) as npz:
         payload = json.loads(bytes(npz["__manifest__"].tobytes()).decode())
         arrays = {k: npz[k] for k in npz.files if k != "__manifest__"}
     return ({key: _unflatten(node, arrays)
              for key, node in payload["trees"].items()}, payload["meta"])
+
+
+def load_release_metadata(path=None, version=RELEASE_VERSION):
+    """The metadata of the release at ``path`` (default the in-repo release
+    of ``version``)."""
+    with np.load(path or release_path(version)) as npz:
+        return json.loads(
+            bytes(npz["__manifest__"].tobytes()).decode())["meta"]
 
 
 def check_release_path(path):

@@ -30,12 +30,8 @@ import numpy as np
 
 from . import ARTICULATOR, FRAME_STEPS, SAMPLE_RATE
 from ..ops.normalize import N_CP, N_GLOTTIS, N_TRACT
+from ..reference_bridge import REFERENCE_ROOT, reference_hidden
 
-#: a checkout of the reference package, which holds the VTL library
-REFERENCE_ROOT = os.environ.get(
-    "PAULE_REFERENCE_ROOT",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "reference"))
 DEFAULT_LIB = os.path.join(REFERENCE_ROOT, "paule", "vocaltractlab_api",
                            "libVocalTractLabApi.so")
 DEFAULT_SPEAKER = os.path.join(REFERENCE_ROOT, "paule", "vocaltractlab_api",
@@ -51,12 +47,6 @@ _INITIALIZED_SPEAKER = None
 # 2000 extra samples of scratch tail vtlSynthBlock may write past the
 # nominal (seq-1)*110 output
 _SAFETY_TAIL = 2000
-
-
-def reference_hidden():
-    """True when ``PAULE_TPU_HIDE_REFERENCE=1``: every feature of a
-    reference checkout reports itself unavailable."""
-    return os.environ.get("PAULE_TPU_HIDE_REFERENCE", "0") == "1"
 
 
 def vtl_available(lib_path=DEFAULT_LIB, speaker_path=DEFAULT_SPEAKER):

@@ -24,6 +24,7 @@ from paule_tpu.parallel import batched as JB
 from paule_tpu.planning import engine as JEng
 from paule_tpu_torch.api import Paule
 from paule_tpu_torch.parallel import batched as TB
+from paule_tpu_torch.parallel import mesh as TMesh
 from paule_tpu_torch.planning import engine as TEng
 from test_torch_planning import ATOL, _setup, _variant
 from torch_parity import CP_ATOL, LOSS_RTOL
@@ -218,10 +219,15 @@ def test_plan_batch_resynth_matches_jax(target_mels, case):
 
 
 def test_a_mesh_raises(target_mels):
+    """``mesh=`` takes a ``parallel.mesh.Mesh``: another object raises
+    ``TypeError``, and a mesh with ``tp > 1`` cannot be made (ROADMAP item
+    11's tp bullet)."""
     port = Paule(device="cpu", dtype=torch.float64)
     try:
         for fn in (TB.plan_batch, TB.plan_batch_resynth):
-            with pytest.raises(NotImplementedError, match="item 11"):
+            with pytest.raises(TypeError, match="Mesh"):
                 fn(port, target_mels, mesh=object())
     finally:
         port.close()
+    with pytest.raises(NotImplementedError, match="item 11, its tp bullet"):
+        TMesh.make_mesh(devices=["cpu"] * 2, dp=1, tp=2)

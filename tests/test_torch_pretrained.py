@@ -219,6 +219,40 @@ def test_random_init_is_seeded():
             p.close()
 
 
+@pytest.mark.parametrize("how", ["env", "missing_file"])
+def test_no_release_falls_back_to_random(how, monkeypatch, tmp_path,
+                                         capsys):
+    """Without the release (``PAULE_TPU_NO_RELEASE=1``, or no file at the
+    release path) ``Paule()`` builds with the seeded random initialisation
+    of ``pretrained_dir="random"`` and prints the hint once, as the JAX
+    package does (``paule_tpu/api.py:333-343``,
+    ``tests/test_release.py:58-60``)."""
+    from paule_tpu_torch import release as TR
+
+    if how == "env":
+        monkeypatch.setenv("PAULE_TPU_NO_RELEASE", "1")
+    else:
+        monkeypatch.setattr(TR, "release_path",
+                            lambda version=TR.RELEASE_VERSION:
+                            str(tmp_path / "absent.npz"))
+    monkeypatch.setattr(TR, "_PRINTED_FALLBACK_HINT", False)
+    assert not TR.release_available()
+    a, b = (Paule(device="cpu", seed=3) for _ in range(2))
+    hint = capsys.readouterr().out
+    rand = Paule(device="cpu", pretrained_dir="random", seed=3)
+    try:
+        assert hint.count("no pretrained weight release found") == 1
+        assert hint.startswith("paule_tpu_torch: ")
+        for attr in ATTR.values():
+            for p in (a, b):
+                got = getattr(p, attr).state_dict()
+                for name, want in getattr(rand, attr).state_dict().items():
+                    assert torch.equal(got[name], want), (attr, name)
+    finally:
+        for p in (a, b, rand):
+            p.close()
+
+
 def test_partial_tree_falls_back_to_random(tree_dir, tmp_path, trees):
     """Only the predictive model's file: it is read, and the other models
     get the seeded random initialisation, as an instance with the same

@@ -148,20 +148,25 @@ def test_wav_path_target_matches_sig_sr(target, tmp_path):
 
 
 def test_options_outside_the_slice_raise(target, monkeypatch):
-    """The one option the port does not have, ``mesh=`` of the batched
-    planners, raises naming its ROADMAP item (11).  ``plot`` and
-    ``physical_forward``, which raised naming item 12 until they were
-    ported, now run: ``plot=True`` hands the mel panels to
+    """The one piece the port does not have, a mesh's ``tp`` axis, raises
+    naming its ROADMAP item (11, the tp bullet); ``mesh=`` of the batched
+    planners takes a ``Mesh`` and raises ``TypeError`` for anything else.
+    ``plot`` and ``physical_forward``, which raised naming item 12 until
+    they were ported, now run: ``plot=True`` hands the mel panels to
     ``visualize.plot_mels`` to show."""
     from paule_tpu_torch import visualize
     from paule_tpu_torch.parallel.batched import plan_batch_resynth
+    from paule_tpu_torch.parallel.mesh import make_mesh
 
     calls = []
     monkeypatch.setattr(visualize, "plot_mels",
                         lambda *args: calls.append(args))
     port = Paule(device="cpu", dtype=torch.float64)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*item 11, its tp bullet"):
+            make_mesh(devices=["cpu"] * 4, dp=2, tp=2)
+        with pytest.raises(TypeError, match="Mesh"):
             plan_batch_resynth(port, np.zeros((1, 4, 60)), mesh=object())
         port.plan_resynth(target_acoustic=target, n_outer=1, n_inner=1,
                           continue_learning=False, plot=True, verbose=False)
@@ -203,7 +208,8 @@ def test_import_leaves_no_jax():
         "'parallel.batched', 'planning.iterative', 'experiments', "
         "'serve', '__main__', 'pretrain', 'models.baselines', "
         "'tools.train_release_weights', 'spectral', 'visualize', 'util', "
-        "'synth.speaker_import', 'synth.vtl_plant', 'dsp.formants'):\n"
+        "'synth.speaker_import', 'synth.vtl_plant', 'dsp.formants', "
+        "'parallel.mesh', 'reference_bridge'):\n"
         "    assert 'paule_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

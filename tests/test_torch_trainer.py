@@ -4,6 +4,7 @@ and the JAX losses and padding: batch index plans from equal
 carried over with ``params_from_jax`` give the same parameters to 1e-8 in
 float64; the replay buffer caps and samples the same rows."""
 
+import copy
 import random
 
 import numpy as np
@@ -23,6 +24,7 @@ from paule_tpu_torch.models.forward import ForwardModel
 from paule_tpu_torch.models.inverse import InverseModelMelTimeSmoothResidual
 from paule_tpu_torch.ops import losses as TL
 from paule_tpu_torch.ops import padding as TP
+from paule_tpu_torch.parallel import mesh as TM
 from paule_tpu_torch.planning import trainer as TT
 from paule_tpu_torch.release import load_into, params_from_jax
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -132,6 +134,33 @@ def test_model_trainer_matches_jax(kind):
     # outside a step the parameters are frozen and hold no gradient
     assert not any(p.requires_grad or p.grad is not None
                    for p in t_tr.model.parameters())
+
+
+@pytest.mark.parametrize("kind", ["forward", "inverse"])
+def test_sharded_train_batch_matches_jax(kind):
+    """Three Adam steps on batches of 4 split into shards of 1 and 3, the
+    second predicted by a copy of the model (as on a second device): the
+    copy's gradients are summed into the model's, so the losses and the
+    parameters equal the JAX trainer's on the whole batches; the copy,
+    synced after each step, holds the same weights."""
+    j_tr, t_tr, (in_shape, out_shape) = _models(kind)
+    twin = copy.deepcopy(t_tr.model)
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        b_in = rng.normal(0, 0.3, (4,) + in_shape)
+        b_out = rng.normal(0, 0.3, (4,) + out_shape)
+        ref = float(j_tr.train_batch(b_in, b_out))
+        x, y = torch.tensor(b_in), torch.tensor(b_out)
+        out = t_tr.train_batch([x[:1], x[1:]], [y[:1], y[1:]],
+                               replicas=[t_tr.model, twin])
+        np.testing.assert_allclose(float(out), ref, rtol=1e-10, atol=0)
+        TM.sync_replicas(t_tr.model, [t_tr.model, twin])
+    _assert_params_close(j_tr, t_tr)
+    assert t_tr.steps == 3
+    for a, b in zip(t_tr.model.parameters(), twin.parameters()):
+        assert torch.equal(a, b)
+    assert not any(p.requires_grad or p.grad is not None
+                   for m in (t_tr.model, twin) for p in m.parameters())
 
 
 @pytest.mark.parametrize("lens", [[12] * 9, [12] * 5 + [8] * 4])
