@@ -100,9 +100,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
     (``drive_sharded``; B1/B2 also held at (402, 4)); and the reference
     bridge's stand-ins
     against the port's own functions (``check_reference_bridge``);
-12. prints one JSON line with the kernels' numbers (the launches of the
-    main path's and the physical path's warm calls) and, last, one JSON
-    line with the device.
+12. drives the mesh's ``tp`` axis, the counterpart of the multi-chip dry
+    run's three parts (``drive_tp``): over ``make_mesh(devices=["cuda:0"]
+    * 4, dp=2, tp=2)`` against ``dp=2, tp=1``, the release forward model
+    with its LSTM gate axis split against itself whole (output and every
+    gradient; one B1 and one B2 per call), ``plan_batch`` step by step,
+    the training step, and ``plan_corpus_batched`` with
+    continue-learning, with utterances per second, launches by (T, B, H)
+    and the bytes moved between leads and blocks per inner step;
+13. prints one JSON line with the kernels' numbers (the launches of the
+    main path's, the physical path's and the tp path's warm calls) and,
+    last, one JSON line with the device.
 
 The kernel phase also holds B1/B2 at the somatosensory variant's H=360
 shapes, B3 at T=402 (the tube embedder), B3/B4 at (201, 8), batched
@@ -148,6 +156,7 @@ from paule_tpu_torch.dsp.griffinlim import mel_to_sig
 from paule_tpu_torch.dsp.resample import resample
 from paule_tpu_torch.dsp.targets import audio_target_to_mel
 from paule_tpu_torch.models.blocks import init_random
+from paule_tpu_torch.ops import lstm as LS
 from paule_tpu_torch.ops import lstm_kernels as K
 from paule_tpu_torch.ops.normalize import inv_normalize_cp
 from paule_tpu_torch.parallel import batched as TB
@@ -2156,6 +2165,222 @@ def drive_sharded(paule, main_times):
     return ok
 
 
+TP_RTOL = 1e-6
+#: the planning steps whose sub-losses (b) prints, from 0
+TP_STEPS = (0, 1, 2, 11, 23)
+
+
+def tp_meshes():
+    """``2 x 2`` and ``2 x 1`` meshes of the one card, listed 4 and 2
+    times: the tensor-parallel code on one device."""
+    return (TMesh.make_mesh(devices=["cuda:0"] * 4, dp=2, tp=2),
+            TMesh.make_mesh(devices=["cuda:0"] * 2, dp=2, tp=1))
+
+
+def check_tp_forward(paule, mesh):
+    """(a): the release forward model with its LSTM split over row 0 of
+    ``mesh`` (tp=2) against itself whole, on a seeded (4, 402, 30) input:
+    the output and the gradients to the input and to every weight (the
+    blocks' summed into their columns), to :data:`TP_RTOL` relative
+    (bit-equal expected); one call launches exactly one B1 and its
+    backward exactly one B2.  -> ok."""
+    model = copy.deepcopy(paule.pred_model).requires_grad_(True)
+    split = copy.deepcopy(model)
+    rep = TMesh.replicate(mesh, split)[0]
+    gen = torch.Generator(device=paule.device).manual_seed(12)
+    x = torch.rand((4, 402, 30), generator=gen, device=paule.device) * 2 - 1
+    cot = torch.randn((4, 201, 60), generator=gen, device=paule.device)
+    runs = {}
+    for name, m in (("whole", model), ("tp=2", rep)):
+        xg = x.clone().requires_grad_(True)
+        K.reset_launch_counts()
+        out = m(xg)
+        torch.cuda.synchronize()
+        fwd = counts()
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        runs[name] = (out.detach(), xg.grad, fwd, counts())
+    (out1, dx1, _f1, _b1), (out2, dx2, fwd, bwd) = runs.values()
+    TMesh.reduce_grads(split, [rep])
+    pairs = [("output", out2, out1), ("d input", dx2, dx1)] + [
+        (f"d {n}", q.grad, p.grad) for (n, p), q in zip(
+            model.named_parameters(), split.parameters())]
+    errs = {name: max_rel(a.cpu(), b.cpu()) for name, a, b in pairs}
+    bits = all(torch.equal(a, b) for _n, a, b in pairs)
+    on_blocks = all(w.grad.device == w.device for w in rep.lstm[0].w_hh)
+    print("  (a) release forward model, LSTM over tp=2, against itself "
+          "whole at (4, 402, 30): max rel err " + ", ".join(
+              f"{k} {v:.1e}" for k, v in errs.items())
+          + f" (tol {TP_RTOL}); bit-equal: {bits}; launches of one call "
+          f"{fwd}, after its backward {bwd}; w_hh gradient blocks on their "
+          f"blocks' devices: {on_blocks}")
+    want_fwd = dict.fromkeys(fwd, 0) | {"lstm_fwd": 1}
+    return (max(errs.values()) <= TP_RTOL and on_blocks and fwd == want_fwd
+            and bwd == want_fwd | {"lstm_bwd": 1})
+
+
+def check_tp_train_step(paule, tp2, tp1, n_frames):
+    """(c): two Adam steps of a copy of the release forward model on seeded
+    batches of 8 split over ``tp2`` (its replicas' LSTMs split over tp=2,
+    their gradients reduced into the model's columns, the replicas synced
+    after each step) against the same over ``tp1``: the losses and every
+    weight agree to :data:`TP_RTOL` relative, and each replica's blocks
+    hold the model's columns.  -> ok."""
+    gen = torch.Generator(device=paule.device).manual_seed(11)
+    trainers = {m: ModelTrainer(copy.deepcopy(paule.pred_model))
+                for m in (tp1, tp2)}
+    replicas = {m: TMesh.replicate(m, t.model) for m, t in trainers.items()}
+    loss_err = 0.0
+    for _ in range(2):
+        x = torch.rand((8, 2 * n_frames, 30), generator=gen,
+                       device=paule.device) * 2 - 1
+        y = torch.randn((8, n_frames, 60), generator=gen,
+                        device=paule.device)
+        losses = []
+        for m, t in trainers.items():
+            losses.append(t.train_batch(
+                TMesh.shard_batch(m, x), TMesh.shard_batch(m, y),
+                replicas=replicas[m]).item())
+            TMesh.sync_replicas(t.model, replicas[m])
+        loss_err = max(loss_err, max_rel(losses[1], losses[0]))
+    w_err = max(max_rel(a.cpu(), b.cpu()) for a, b in zip(
+        trainers[tp2].model.parameters(), trainers[tp1].model.parameters()))
+    synced = all(torch.equal(q, p if cols is None else p[..., cols])
+                 for rep in replicas[tp2]
+                 for p, q, cols in TMesh.param_pairs(trainers[tp2].model,
+                                                     rep))
+    print(f"  (c) training step over dp=2 x tp=2 against dp=2 x tp=1 (2 Adam "
+          f"steps, batches of 8): loss max rel err {loss_err:.3e}, weights "
+          f"{w_err:.3e} (tol {TP_RTOL}); the replicas' blocks synced: "
+          f"{synced}")
+    return loss_err <= TP_RTOL and w_err <= TP_RTOL and synced
+
+
+def drive_tp(paule, main_times):
+    """The mesh's ``tp`` axis at full width, the counterpart of
+    ``__graft_entry__.dryrun_multichip``'s three parts: the release
+    weights (H=720) on ``drive_sharded``'s 8 targets of 402 cp frames over
+    ``make_mesh(devices=["cuda:0"] * 4, dp=2, tp=2)`` (one card listed
+    four times), against ``dp=2, tp=1``: (a) the forward model split
+    against itself whole (:func:`check_tp_forward`); (b) ``plan_batch``,
+    24 steps, step by step (both sides run the kernels at B=4, so
+    bit-equal is expected; if not, the difference at steps 1, 2, 3, 12
+    and 24 is printed and step 1 held to :data:`TP_RTOL`), beside the
+    same steps of dp=2 x tp=1 against the unsharded batch of 8 (the drift
+    of another batch size's rounding, the witness in the same run), with
+    the bytes moved between leads and blocks per inner step and dp row
+    (``ops.lstm.gather.bytes``, the 24-step run's less a 1-step run's,
+    over 23); (c) the training step
+    (:func:`check_tp_train_step`); (d) ``plan_corpus_batched``, 2 x 24
+    steps with continue-learning, warm, timed tp=1, tp=2, tp=2, tp=1 from
+    one state: utterances per second, launches by (T, B, H), bytes
+    moved per inner step and the difference of the results (not held;
+    training reduces the weight gradients in another order).  -> (ok,
+    the tp=2 run's launches)."""
+    targets = [synth_target(402, seed=10 + i) for i in range(8)]
+    mels = np.stack([audio_target_to_mel(t, device=paule.device,
+                                         dtype=paule.dtype)[2]
+                     for t in targets])
+    tp2, tp1 = tp_meshes()
+    dp = tp2.shape["dp"]
+    ok_fwd = check_tp_forward(paule, tp2)
+
+    plan_kw = dict(objective="acoustic_semvec", log_semantics=True,
+                   synthesize=False)
+    one = TB.plan_batch(paule, mels, mesh=tp1, n_steps=24, **plan_kw)
+    gathered = {}
+    for n in (1, 24):
+        LS.gather.bytes = 0
+        K.reset_launch_counts()
+        two, shapes = launches_by_shape(lambda n=n: TB.plan_batch(
+            paule, mels, mesh=tp2, n_steps=n, **plan_kw))
+        gathered[n] = LS.gather.bytes
+    step_bytes = (gathered[24] - gathered[1]) / 23 / dp
+    exact = [(two["planned_cp"], one["planned_cp"])] + [
+        (getattr(two["sub_losses"], f), getattr(one["sub_losses"], f))
+        for f in one["sub_losses"]._fields]
+    bits = all(np.array_equal(a, b) for a, b in exact)
+    first_err = max(max_rel(getattr(two["sub_losses"], f)[0],
+                            getattr(one["sub_losses"], f)[0])
+                    for f in one["sub_losses"]._fields)
+    print(f"  (b) plan_batch, 24 steps, dp=2 x tp=2 against dp=2 x tp=1: "
+          f"bit-equal: {bits}; step 1 max rel err {first_err:.3e} (tol "
+          f"{TP_RTOL})")
+    # the witness beside it: the rounding of another batch size (B=8
+    # against the rows' 4) grows over the same 24 steps of the same run
+    full = TB.plan_batch(paule, mels, n_steps=24, **plan_kw)
+    for name, a, b in (("dp=2 x tp=2 against dp=2 x tp=1", two, one),
+                       ("dp=2 x tp=1 against the unsharded batch of 8", one,
+                        full)):
+        print(f"  (b) {name}, not held: sub-losses "
+              f"{_step_errs(a['sub_losses'], b['sub_losses'], TP_STEPS)}; "
+              f"planned_cp {max_rel(a['planned_cp'], b['planned_cp']):.1e}")
+    print(f"  (b) bytes moved between the rows' leads and blocks per inner "
+          f"step and dp row (ops.lstm.gather.bytes): {step_bytes:.0f} "
+          f"({step_bytes / 1e6:.1f} MB); launches of the 24 steps by kernel "
+          "and (T, B, H): " + ", ".join(f"{k[0]} {k[1:]} {n}"
+                                        for k, n in shapes.items()))
+    ok_train = check_tp_train_step(paule, tp2, tp1, mels.shape[1])
+
+    n_outer, n_inner = 2, 24
+    kw = dict(max_batch=8, verbose=False, plan_kwargs=dict(
+        objective="acoustic_semvec", n_outer=n_outer, n_inner=n_inner,
+        continue_learning=True))
+    state = CK.paule_state(paule)
+    runs = collections.defaultdict(list)
+    try:
+        for m in (tp1, tp2):   # the first call of each pays its set-up
+            X.plan_corpus_batched(paule, list(mels), mesh=m, **kw)
+            CK.restore_paule_state(paule, state)
+        for m in (tp1, tp2, tp2, tp1):
+            paule._py_rng.seed(7)
+            LS.gather.bytes = 0
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            out, shapes = launches_by_shape(
+                lambda m=m: X.plan_corpus_batched(paule, list(mels), mesh=m,
+                                                  **kw))
+            torch.cuda.synchronize()
+            runs[m].append((out, shapes, time.perf_counter() - t0, counts(),
+                            LS.gather.bytes))
+            CK.restore_paule_state(paule, state)
+    finally:
+        CK.restore_paule_state(paule, state)
+    res1, res2 = runs[tp1][0][0], runs[tp2][0][0]
+    errs = {key: max(max_rel(a[key], b[key]) for a, b in zip(res2, res1))
+            for key in ("planned_cp", "prod_loss_curve",
+                        "prod_semvec_loss_curve")}
+    _o, shapes, _w, launches, run_bytes = runs[tp2][-1]
+    walls = {m: [r[2] for r in rs] for m, rs in runs.items()}
+    print(f"  (d) plan_corpus_batched, 8 x 402 cp frames, {n_outer} x "
+          f"{n_inner} steps, continue-learning: dp=2 x tp=1 "
+          + ", ".join(f"{w:.3f} s ({8 / w:.2f} utterances per s)"
+                      for w in walls[tp1])
+          + "; dp=2 x tp=2 " + ", ".join(
+              f"{w:.3f} s ({8 / w:.2f} utterances per s)" for w in walls[tp2])
+          + f" (main path's warm plan_resynth: {1 / main_times['wall']:.2f} "
+          "per s)")
+    print(f"  (d) tp=2 launches: {launches}; by kernel and (T, B, H): "
+          + ", ".join(f"{k[0]} {k[1:]} {n}" for k, n in shapes.items())
+          + f"; bytes moved between leads and blocks per inner step and "
+          f"dp row: {run_bytes / (n_outer * n_inner) / dp / 1e6:.1f} MB "
+          f"(planning, metrics and training)")
+    print("  (d) tp=2 against tp=1, not held: " + ", ".join(
+        f"{k} {v:.1e}" for k, v in errs.items()))
+    ok_corpus = all(np.isfinite(r["planned_cp"]).all()
+                    and r["planned_cp"].shape == (402, 30) for r in res2)
+    ok_shapes = all(shapes.get((name, t, 4, H), 0) > 0 for name, t in (
+        ("lstm_fwd", 402), ("lstm_bwd", 402), ("lstm_stack2_fwd", 201),
+        ("lstm_stack2_bwd", 201)))
+    ok = (ok_fwd and (bits or first_err <= TP_RTOL) and ok_train
+          and ok_corpus and ok_shapes)
+    if not ok:
+        print("tp path: disagrees with tp=1, launched other than one B1 and "
+              "one B2 per call, or B1-B4 did not run at the rows' batch of 4",
+              file=sys.stderr)
+    return ok, launches
+
+
 def check_reference_bridge():
     """Item 12: the librosa, soundfile and toml stand-ins installed; each
     librosa stand-in against the port's own function on a seeded signal
@@ -2317,6 +2542,9 @@ def main():
         ok_bat = drive_batched(paule, main_times)
         header(f"batched path over a mesh (item 11), {card}", t_start)
         ok_dp = drive_sharded(paule, main_times)
+        header(f"the mesh's tp axis (dryrun_multichip's three parts), "
+               f"{card}", t_start)
+        ok_tp, tp_launches = drive_tp(paule, main_times)
         header("iterative path", t_start)
         ok_it = drive_iterative(paule)
         header("HTTP service", t_start)
@@ -2350,7 +2578,7 @@ def main():
           and ok_phy and ok_bat and ok_it and ok_srv and ok_cli and ok_pre
           and ok_zoo and ok_cpu and ok_cpu_cl and ok_cpu_sem and ok_cpu_som
           and ok_cpu_bat and ok_cpu_pre and ok_cpu_phy and ok_f1 and ok_f2
-          and ok_ovl and ok_dp and ok_rb)
+          and ok_ovl and ok_dp and ok_tp and ok_rb)
 
     kernels = []
     for k in K.KERNELS:
@@ -2358,7 +2586,8 @@ def main():
         kernels.append({
             "name": k.__name__, "route": "cuda", "source": LSTM_SOURCE,
             "replaces": REPLACES[k.__name__],
-            "launches": launches[k.__name__] + phy_launches[k.__name__],
+            "launches": (launches[k.__name__] + phy_launches[k.__name__]
+                         + tp_launches[k.__name__]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})

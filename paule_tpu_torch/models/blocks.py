@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.lstm import ShardedParams
+
 
 def linear(w, b, x):
     return x @ w + b
@@ -223,6 +225,36 @@ class LSTMLayer(nn.Module):
         _fill_uniform(self.w_ih, bound, generator)
         _fill_uniform(self.w_hh, bound, generator)
         _fill_uniform(self.b, 2.0 * bound, generator)
+
+
+class TPLSTMLayer(nn.Module):
+    """An :class:`LSTMLayer` with its 4H gate axis split over devices (a
+    mesh's ``tp`` axis): one ``w_ih``, ``w_hh``, ``b`` block per device,
+    the blocks contiguous columns in order, as
+    :func:`paule_tpu_torch.parallel.mesh.shard_lstm_params` lays them out.
+    ``blocks``: one ``{"w_ih", "w_hh", "b"}`` dict of tensors per device,
+    taken as the parameters.  :meth:`params` hands
+    :func:`paule_tpu_torch.ops.lstm.lstm` the blocks, which it runs with
+    the recurrence on the first block's device."""
+
+    def __init__(self, blocks, requires_grad=True):
+        super().__init__()
+        for key in ("w_ih", "w_hh", "b"):
+            setattr(self, key, nn.ParameterList(
+                nn.Parameter(block[key], requires_grad=requires_grad)
+                for block in blocks))
+
+    def params(self):
+        return ShardedParams(tuple(self.w_ih), tuple(self.w_hh),
+                             tuple(self.b))
+
+    def columns(self):
+        """Each block's columns of the whole layer's gate axis, a
+        ``slice`` of the last axis of ``w_ih``, ``w_hh`` and ``b``."""
+        bounds = [0]
+        for b in self.b:
+            bounds.append(bounds[-1] + b.shape[0])
+        return [slice(a, z) for a, z in zip(bounds, bounds[1:])]
 
 
 def lstm_stack(input_size, hidden_size, num_layers):

@@ -452,6 +452,17 @@ def _shift(first, seq):
     return torch.cat([first[None], seq[:-1]], dim=0)
 
 
+def core_bwd(gates_x, w_hh, h0, c0, hs, cs, ghs):
+    """:class:`LSTMCore`'s backward through B2 from its saved tensors and
+    the cotangent of ``hs``: -> ``(hs_prev, dgates, dh0, dc0)``, the
+    previous step's hidden states for the weight gradient."""
+    hidden = w_hh.shape[0]
+    hs_prev = _shift(h0, hs)
+    acts = activate(gates_x + hs_prev @ w_hh, hidden)
+    dgates, dh0, dc0 = lstm_bwd(acts, _shift(c0, cs), ghs.contiguous(), w_hh)
+    return hs_prev, dgates, dh0, dc0
+
+
 class LSTMCore(torch.autograd.Function):
     """``(gates_x, w_hh, h0, c0) -> (hs, cs)``.  Gradients through ``hs``
     are exact; the cotangent of ``cs`` is ignored (``lstm_core``,
@@ -469,12 +480,7 @@ class LSTMCore(torch.autograd.Function):
     @staticmethod
     @first_order_only
     def backward(ctx, ghs, _gcs):
-        gates_x, w_hh, h0, c0, hs, cs = ctx.saved_tensors
-        hidden = w_hh.shape[0]
-        hs_prev = _shift(h0, hs)
-        cs_prev = _shift(c0, cs)
-        acts = activate(gates_x + hs_prev @ w_hh, hidden)
-        dgates, dh0, dc0 = lstm_bwd(acts, cs_prev, ghs.contiguous(), w_hh)
+        hs_prev, dgates, dh0, dc0 = core_bwd(*ctx.saved_tensors, ghs)
         dw_hh = (torch.einsum("tbh,tbg->hg", hs_prev, dgates)
                  if ctx.needs_input_grad[1] else None)
         return dgates, dw_hh, dh0, dc0

@@ -22,6 +22,7 @@ import torch
 
 from ..ops import losses as L
 from ..ops.padding import pad_batch
+from ..parallel.mesh import reduce_grads
 
 #: the reference's replay columns (``paule_tpu/api.py:1549-1551``)
 COLUMNS = ("vector", "cp_norm", "melspec_norm_synthesized", "tube_norm",
@@ -122,10 +123,12 @@ class ModelTrainer:
         With ``replicas`` the batch comes in shards: ``batch_in`` and
         ``batch_out`` are lists, and shard ``i`` is predicted by
         ``replicas[i]``, the model itself or a copy of it on the shard's
-        device.  The loss of the whole batch is taken on the model's
-        device, and the gradients that reach the copies are summed into
-        the model's before the step; bringing the copies up to the new
-        weights is the caller's
+        device, whose LSTM layers may be split over devices
+        (:func:`paule_tpu_torch.parallel.mesh.replicate` with ``tp > 1``).
+        The loss of the whole batch is taken on the model's device, and
+        the gradients that reach the copies are summed into the model's
+        before the step, each block of a split layer into its columns;
+        bringing the copies up to the new weights is the caller's
         (:func:`paule_tpu_torch.parallel.mesh.sync_replicas`)."""
         if replicas is None:
             replicas, batch_in, batch_out = ([self.model], [batch_in],
@@ -148,10 +151,7 @@ class ModelTrainer:
         try:
             loss = self._loss(replicas, batch_in, batch_out, params[0].device)
             loss.backward()
-            for r in copies:
-                for p, q in zip(self.model.parameters(), r.parameters()):
-                    grad = q.grad.to(p.device)
-                    p.grad = grad if p.grad is None else p.grad + grad
+            reduce_grads(self.model, copies)
             self.optimizer.step()
         finally:
             for r in (self.model, *copies):

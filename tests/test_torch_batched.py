@@ -220,14 +220,18 @@ def test_plan_batch_resynth_matches_jax(target_mels, case):
 
 def test_a_mesh_raises(target_mels):
     """``mesh=`` takes a ``parallel.mesh.Mesh``: another object raises
-    ``TypeError``, and a mesh with ``tp > 1`` cannot be made (ROADMAP item
-    11's tp bullet)."""
+    ``TypeError``; a mesh with ``tp > 1`` is made, and a ``tp`` that does
+    not divide the models' gate axes (4H) raises ``ValueError`` when the
+    planner splits them."""
     port = Paule(device="cpu", dtype=torch.float64)
     try:
         for fn in (TB.plan_batch, TB.plan_batch_resynth):
             with pytest.raises(TypeError, match="Mesh"):
                 fn(port, target_mels, mesh=object())
+        mesh = TMesh.make_mesh(devices=["cpu"] * 7, dp=1, tp=7)
+        assert mesh.shape == {"dp": 1, "tp": 7}
+        with pytest.raises(ValueError, match="tp=7"):
+            TB.plan_batch(port, target_mels, mesh=mesh, n_steps=1,
+                          synthesize=False)
     finally:
         port.close()
-    with pytest.raises(NotImplementedError, match="item 11, its tp bullet"):
-        TMesh.make_mesh(devices=["cpu"] * 2, dp=1, tp=2)

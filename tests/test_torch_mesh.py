@@ -47,7 +47,8 @@ def target_mels():
 
 def test_make_mesh_shapes():
     """As ``tests/test_parallel.py:30-37``, over eight listed devices; no
-    CUDA device gives no default mesh here; ``tp > 1`` is not ported."""
+    CUDA device gives no default mesh here; ``tp > 1`` makes the mesh
+    JAX makes (its grid: ``tests/test_torch_tp.py``)."""
     devices = ["cpu"] * 8
     assert TM.make_mesh(8, devices=devices).shape == JM.make_mesh(8).shape
     assert TM.make_mesh(devices=devices, dp=8, tp=1).shape == {
@@ -57,10 +58,9 @@ def test_make_mesh_shapes():
         TM.make_mesh(8, dp=3, tp=2, devices=devices)
     with pytest.raises(ValueError):
         JM.make_mesh(8, dp=3, tp=2)
-    with pytest.raises(NotImplementedError, match="item 11, its tp bullet"):
-        TM.make_mesh(8, dp=4, tp=2, devices=devices)
-    with pytest.raises(NotImplementedError, match="tp bullet"):
-        TM.Mesh(devices, dp=4, tp=2)
+    assert TM.make_mesh(8, dp=4, tp=2, devices=devices).shape == dict(
+        JM.make_mesh(8, dp=4, tp=2).shape) == {"dp": 4, "tp": 2}
+    assert TM.Mesh(devices, dp=4, tp=2).row(3) == [torch.device("cpu")] * 2
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="no devices"):
             TM.make_mesh()

@@ -148,9 +148,9 @@ def test_wav_path_target_matches_sig_sr(target, tmp_path):
 
 
 def test_options_outside_the_slice_raise(target, monkeypatch):
-    """The one piece the port does not have, a mesh's ``tp`` axis, raises
-    naming its ROADMAP item (11, the tp bullet); ``mesh=`` of the batched
-    planners takes a ``Mesh`` and raises ``TypeError`` for anything else.
+    """Nothing raises for being outside the port: a mesh's ``tp`` axis
+    makes a ``dp x tp`` mesh; ``mesh=`` of the batched planners
+    takes a ``Mesh`` and raises ``TypeError`` for anything else.
     ``plot`` and ``physical_forward``, which raised naming item 12 until
     they were ported, now run: ``plot=True`` hands the mel panels to
     ``visualize.plot_mels`` to show."""
@@ -163,9 +163,8 @@ def test_options_outside_the_slice_raise(target, monkeypatch):
                         lambda *args: calls.append(args))
     port = Paule(device="cpu", dtype=torch.float64)
     try:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*item 11, its tp bullet"):
-            make_mesh(devices=["cpu"] * 4, dp=2, tp=2)
+        mesh = make_mesh(devices=["cpu"] * 4, dp=2, tp=2)
+        assert mesh.shape == {"dp": 2, "tp": 2} and len(mesh.leads) == 2
         with pytest.raises(TypeError, match="Mesh"):
             plan_batch_resynth(port, np.zeros((1, 4, 60)), mesh=object())
         port.plan_resynth(target_acoustic=target, n_outer=1, n_inner=1,
