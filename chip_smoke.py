@@ -108,7 +108,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
     the training step, and ``plan_corpus_batched`` with
     continue-learning, with utterances per second, launches by (T, B, H)
     and the bytes moved between leads and blocks per inner step;
-13. prints one JSON line with the kernels' numbers (the launches of the
+13. runs each of the port's measurement and corpus-quality tools
+    (``paule_tpu_torch/tools/``: ``hot_timing``, ``roofline``,
+    ``batch_scaling``, ``step_decomposition``, ``profile_device``,
+    ``bench_serve``, ``corpus_quality_run``, ``release_quality_run``) at a
+    cut budget (``drive_tools``), checking that every number is finite and
+    that each traced ``plan_resynth`` phase but the host's synthesis had
+    device time;
+14. prints one JSON line with the kernels' numbers (the launches of the
     main path's, the physical path's and the tp path's warm calls) and,
     last, one JSON line with the device.
 
@@ -163,7 +170,12 @@ from paule_tpu_torch.parallel import batched as TB
 from paule_tpu_torch.parallel import mesh as TMesh
 from paule_tpu_torch.planning.trainer import ModelTrainer
 from paule_tpu_torch.spectral import SpectralForwardModel
+from paule_tpu_torch.tools import (batch_scaling, bench_serve,
+                                   corpus_quality_run, hot_timing,
+                                   profile_device, release_quality_run,
+                                   roofline, step_decomposition)
 from paule_tpu_torch.tools import kernel_ceiling_probes as P
+from paule_tpu_torch.tools import timing
 from paule_tpu_torch.tools import train_release_weights as R
 from paule_tpu_torch.tools.timing import (bound_ms, cuda_ms, cudnn_lstm_ms,
                                           lstm_bwd_bound, lstm_fwd_bound)
@@ -2419,6 +2431,96 @@ def check_reference_bridge():
     return ok
 
 
+#: the measurement tools at a cut budget (``drive_tools``): each tool's
+#: ``run`` and its keywords
+TOOL_RUNS = {
+    "hot_timing": (hot_timing.run, dict(n_outer=1)),
+    "roofline": (roofline.run, dict(batches=(1, 32), step_counts=(2, 4, 8),
+                                    reps=3, step_reps=3)),
+    "batch_scaling": (batch_scaling.run, dict(batches=(1, 32),
+                                              step_counts=(2, 4, 8), reps=3)),
+    "step_decomposition": (step_decomposition.run,
+                           dict(step_counts=(2, 4, 8), reps=3)),
+    "profile_device": (profile_device.run, dict(n_outer=1)),
+    "bench_serve": (bench_serve.run, dict(n=2, plan_n=1)),
+    "corpus_quality_run": (corpus_quality_run.run, dict(
+        n_utt=8, n_outer=1, n_inner=5, babble_n=16, babble_epochs=2,
+        n_long=200)),
+    "release_quality_run": (release_quality_run.run,
+                            dict(n_utt=8, n_outer=1, n_inner=5)),
+}
+
+
+def drive_tools():
+    """The port's measurement and corpus-quality tools
+    (``paule_tpu_torch/tools/``), each ``run`` on the card at the cut
+    budget of :data:`TOOL_RUNS`: checks that every number of each result
+    is finite (none missing), that each result names the card, and that
+    ``profile_device``'s trace has every ``plan_resynth.<phase>`` range
+    with its device time, above 0 in each phase that launches device work
+    (all but the host's synthesis).  Prints each tool's headline numbers.
+    -> ok."""
+    ok = True
+    out = {}
+    for name, (tool_run, kw) in TOOL_RUNS.items():
+        t0 = time.perf_counter()
+        out[name] = res = tool_run(device="cuda", **kw)
+        bad = [k for k, v in timing.leaf_numbers(res)
+               if v is None or not np.isfinite(v)]
+        if bad or res.get("device") != "cuda" or not res.get("card"):
+            print(f"tools: {name} gave missing or non-finite numbers "
+                  f"{bad[:8]} or no card", file=sys.stderr)
+            ok = False
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    t = out["hot_timing"]
+    print(f"  hot_timing (1 outer): hot wall {t['hot_wall_s']:.3f} s; "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in t["timings"].items())
+          + f"; final produced loss {t['final_prod_loss']:.4f}")
+    for b, r in out["roofline"]["derived_vs_measured"].items():
+        kern = out["roofline"]["per_step_us"][b]["kernels"]
+        print(f"  roofline {b}: floor {r['derived_floor_ms']:.3f} ms, "
+              f"measured {r['measured_ms_per_inner_step']:.3f} ms per inner "
+              f"step (x{r['ratio']:.2f}); µs per step " + ", ".join(
+                  f"{k} {v['slope_us']:.2f}" for k, v in kern.items()))
+    print("  batch_scaling: " + ", ".join(
+        f"{b} {r['per_inner_step_ms']:.3f} ms "
+        f"({r['utterance_steps_per_s']:.0f} utterance-steps per s)"
+        for b, r in out["batch_scaling"]["batches"].items()))
+    print("  step_decomposition, ms per inner step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in
+        out["step_decomposition"]["per_inner_step_ms"].items()))
+    prof = out["profile_device"]
+    trace = prof["profiler_trace"]
+    print(f"  profile_device: planning {prof['planning_flops_per_s']:.3e} "
+          f"FLOP/s ({prof['mfu_vs_f32_peak_B1']:.2%} of the f32 peak); "
+          "traced phases: " + ", ".join(
+              f"{k} busy {v['device_busy_s']:.3f} of {v['wall_s']:.3f} s "
+              f"({v['device_busy_share_of_untraced']:.1%} of the untraced "
+              f"{v['untraced_wall_s_per_outer']:.3f} s)"
+              for k, v in trace.items()))
+    # synthesis is host C++ (with plan_overlap only its tail waits here),
+    # so its device time is measured but may be 0
+    if set(trace) != set(PHASES) or not all(
+            v["device_busy_s"] > 0 for k, v in trace.items()
+            if k != "synthesis"):
+        print(f"tools: profile_device's trace lacks a phase or its device "
+              f"time ({sorted(trace)})", file=sys.stderr)
+        ok = False
+    print("  bench_serve, p50 ms: " + ", ".join(
+        f"{k} {v.get('p50_ms', v.get('req_per_s')):.2f}"
+        for k, v in out["bench_serve"]["metrics"].items()))
+    c = out["corpus_quality_run"]
+    print(f"  corpus_quality_run: corpus wall {c['corpus_wall_s']:.3f} s, "
+          f"final produced loss median {c['final_prod_loss']['median']:.4f} "
+          f"(pre-plan {c['preplan_prod_loss_median']:.4f}); long utterance "
+          f"chunked / single {c['long_utterance']['chunked_over_single']:.3f}")
+    print("  release_quality_run: " + ", ".join(
+        f"{k} wall {v['corpus_wall_s']:.3f} s, median "
+        f"{v['median_final_prod_loss']:.4f}"
+        for k, v in out["release_quality_run"]["rows"].items()))
+    return ok
+
+
 def header(name, t_start):
     """A phase's heading, with the seconds since the script started."""
     print(f"{name} ({time.perf_counter() - t_start:.1f} s in):")
@@ -2430,7 +2532,7 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = P.card_line()
+    card = timing.card_line()
     print(card)
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -2566,6 +2668,8 @@ def main():
     ok_zoo, _zoo_shapes = drive_zoo(dev)
     header("reference bridge (item 12)", t_start)
     ok_rb = check_reference_bridge()
+    header(f"measurement and corpus-quality tools, {card}", t_start)
+    ok_tools = drive_tools()
     header("card against the CPU", t_start)
     ok_cpu = check_against_cpu(False)
     ok_cpu_cl = check_against_cpu(True)
@@ -2578,7 +2682,7 @@ def main():
           and ok_phy and ok_bat and ok_it and ok_srv and ok_cli and ok_pre
           and ok_zoo and ok_cpu and ok_cpu_cl and ok_cpu_sem and ok_cpu_som
           and ok_cpu_bat and ok_cpu_pre and ok_cpu_phy and ok_f1 and ok_f2
-          and ok_ovl and ok_dp and ok_tp and ok_rb)
+          and ok_ovl and ok_dp and ok_tp and ok_rb and ok_tools)
 
     kernels = []
     for k in K.KERNELS:

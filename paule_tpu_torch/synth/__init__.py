@@ -467,10 +467,16 @@ def tube_features(tube_info):
 
 
 class SynthPool:
-    """Independent synthesizer instances for batch synthesis."""
+    """Independent synthesizer instances for batch synthesis.
+
+    One native call at a time uses the instances (a lock): a call spreads
+    its batch over all of them, and an instance synthesising for two
+    threads at once returns corrupt audio (the HTTP service's concurrent
+    /synthesize requests, or one beside a plan's synthesis)."""
 
     def __init__(self, size=2, speaker_path="default"):
         self._lib = _load()
+        self._lock = threading.Lock()
         self._handles = []
         for _ in range(size):
             h = self._lib.pts_create(str(speaker_path).encode())
@@ -492,13 +498,14 @@ class SynthPool:
         audio = np.zeros((b, (t - 1) * FRAME_STEPS))
         errors = np.zeros(b, dtype=np.int32)
         bufs = _tube_buffers((b, t)) if with_tube else ()
-        handles = (ctypes.c_void_p * len(self._handles))(*self._handles)
-        failure = self._lib.pts_synth_block_batch(
-            handles, len(self._handles), tract.ctypes.data,
-            glottis.ctypes.data, b, t, FRAME_STEPS, audio.ctypes.data,
-            int(with_tube),
-            *([x.ctypes.data for x in bufs] if with_tube else [None] * 6),
-            errors.ctypes.data)
+        with self._lock:
+            handles = (ctypes.c_void_p * len(self._handles))(*self._handles)
+            failure = self._lib.pts_synth_block_batch(
+                handles, len(self._handles), tract.ctypes.data,
+                glottis.ctypes.data, b, t, FRAME_STEPS, audio.ctypes.data,
+                int(with_tube),
+                *([x.ctypes.data for x in bufs] if with_tube else [None] * 6),
+                errors.ctypes.data)
         if failure != 0:
             raise ValueError(f"pts_synth_block_batch failed: error {failure}")
         errors[~finite] = -1
@@ -536,6 +543,7 @@ class SynthPool:
         return audio[0], sr, tubes[0]
 
     def close(self):
-        for h in self._handles:
-            self._lib.pts_destroy(h)
-        self._handles = []
+        with self._lock:
+            for h in self._handles:
+                self._lib.pts_destroy(h)
+            self._handles = []

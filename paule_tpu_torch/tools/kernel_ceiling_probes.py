@@ -30,7 +30,6 @@ Run on the card, or on the CPU (plain versions, no timings)::
 
 import argparse
 import json
-import subprocess
 import sys
 
 import torch
@@ -283,14 +282,6 @@ def time_kernels(inp, reps=3):
     return out
 
 
-def card_line():
-    """``name, power limit`` of the card as nvidia-smi reports them."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    return smi.stdout.strip()
-
-
 def run(seq=SEQ, hidden=HIDDEN, device="cuda"):
     """The probes on the TPU probe's inputs (seed 0, batch :data:`BATCH`):
     each form against its plain version and the other form and, on the
@@ -332,7 +323,7 @@ def main(argv=None):
             return 1
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        print(card_line())
+        print(timing.card_line())
     result = run(device=args.device)
     report(result)
     print(json.dumps({"errors": result["errors"], "times": result["times"]}))

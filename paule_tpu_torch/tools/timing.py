@@ -1,9 +1,15 @@
-"""Device timing and roofline bounds for the kernels, on the card only.
+"""Device timing and roofline bounds for the kernels, and the device
+checks of the measurement tools.
 
-Measurement helpers shared by ``chip_smoke.py`` and the ceiling probes;
-the port itself never calls them.  ``torch.nn.LSTM`` (cuDNN) appears here
-only as the yardstick beside a kernel's time.
+Measurement helpers shared by ``chip_smoke.py``, the ceiling probes and the
+tools of this package; the port itself never calls them.
+``torch.nn.LSTM`` (cuDNN) appears here only as the yardstick beside a
+kernel's time.
 """
+
+import json
+import subprocess
+import time
 
 import torch
 
@@ -68,3 +74,72 @@ def cudnn_lstm_ms(n_in, hidden, n_layers, seq, batch, device, backward,
     params = [x, *lstm.parameters()]
     return cuda_ms(lambda: torch.autograd.grad(out, params, g,
                                                retain_graph=True), reps)
+
+
+def card_line():
+    """``name, power limit`` of the card as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return smi.stdout.strip()
+
+
+def open_device(device):
+    """``device`` as a ``torch.device``.  A CUDA device raises
+    ``RuntimeError`` when there is no card, so that a measurement never
+    falls back to the CPU, and gets full-f32 math (no TF32), as
+    ``Paule`` sets it; only a caller that names the CPU runs there."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the measurement tools run on the card "
+                "(run(device='cpu') rehearses one on the CPU)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def labels(device):
+    """What a result was measured on: ``{"device": "cuda" | "cpu",
+    "card": nvidia-smi's name and power limit, or None on the CPU}``."""
+    on_card = device.type == "cuda"
+    return {"device": device.type, "card": card_line() if on_card else None}
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def wall_s(fn, device):
+    """Host seconds of ``fn()`` up to ``torch.cuda.synchronize()`` on the
+    card.  -> (seconds, what ``fn`` returned)."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return time.perf_counter() - t0, out
+
+
+def leaf_numbers(obj, key=None):
+    """-> [(key, value)] of every leaf number or ``None`` of a tool's
+    result, each with the key it stands under."""
+    if isinstance(obj, dict):
+        return [kv for k, v in obj.items() for kv in leaf_numbers(v, k)]
+    if isinstance(obj, (list, tuple)):
+        return [kv for v in obj for kv in leaf_numbers(v, key)]
+    if obj is None or (isinstance(obj, (int, float))
+                       and not isinstance(obj, bool)):
+        return [(key, obj)]
+    return []
+
+
+def emit(result, out_path=None):
+    """Print a tool's ``result`` as one JSON line, and write it to
+    ``out_path`` when given."""
+    line = json.dumps(result)
+    print(line)
+    if out_path:
+        with open(out_path, "w") as fh:
+            fh.write(line + "\n")

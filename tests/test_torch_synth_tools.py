@@ -227,3 +227,49 @@ def test_read_cp_rejects_malformed_files(case, tmp_path):
     for mod in (J, T):
         with pytest.raises(ValueError):
             mod.read_cp(path)
+
+
+def test_synth_pool_serves_concurrent_callers():
+    """16 threads (more than the host's cores) speak one trajectory
+    through one pool at once: each gets the audio of a fresh instance,
+    bit for bit.  Without the pool's lock two threads synthesise on the
+    same instance and the audio is corrupt (errors above its peak)."""
+    import sys
+    import threading
+
+    from paule_tpu_torch.ops.normalize import inv_normalize_cp
+
+    rng = np.random.default_rng(0)
+    cp = inv_normalize_cp(np.clip(
+        rng.normal(0, 0.05, (201, 30)).cumsum(0) * 0.2, -1, 1))
+    fresh = T.SynthPool(size=1)
+    try:
+        ref = fresh.speak(cp)[0]
+    finally:
+        fresh.close()
+    pool = T.SynthPool(size=4)
+    outs, errors = [], []
+
+    def worker():
+        try:
+            for _ in range(4):
+                outs.append(pool.speak(cp)[0])
+        except Exception as exc:  # noqa: BLE001  (reported below)
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        pool.close()
+    assert not errors, errors
+    assert len(outs) == 64
+    for out in outs:
+        assert np.array_equal(out, ref)
