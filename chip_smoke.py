@@ -13,10 +13,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    port never calls), with µs per time step; holds the four persistent
    kernels also at edge shapes (T=1, a batch of 13 rows, H=100), checks
    that two calls give bit-identical outputs, and counts with
-   ``torch.profiler`` that one call of each runs exactly one device kernel;
+   ``torch.profiler`` that one call of each, and of each ceiling probe at
+   both of step 3's shapes, runs exactly one device kernel;
 3. runs the ceiling-probe entry point (``paule_tpu_torch.tools.
-   kernel_ceiling_probes``): the four probe kernels against their plain
-   versions at T=1024, B=1, H=720, with µs per step beside B1/B2;
+   kernel_ceiling_probes``) at (T, B) = (1024, 1) and (402, 8), H=720: the
+   four probe kernels (each one persistent launch per call) against their
+   plain versions, with ms per call and µs per step beside B1/B2 timed in
+   the same process (step 2 counts one device kernel per call of each);
 4. drives ``paule_tpu_torch.api.Paule.plan_resynth`` at full width (H=720,
    the in-repo release weights) on a synthesised target: a short plan
    without continue-learning, then the default call with continue-learning
@@ -198,6 +201,10 @@ TRAIN_STACK_SHAPES = ((60, H), (120, H), (100, 180), (100, 200))
 #: training losses), relative
 PLAN_RTOL = 1e-3
 
+#: (T, B) of the ceiling probes: the TPU probe's shape, and the shape of
+#: continue-learning's B1/B2 rows (the forward model's training batch)
+PROBE_SHAPES = ((1024, 1), (402, 8))
+
 LSTM_SOURCE = "paule_tpu_torch/csrc/lstm.cu"
 PROBE_SOURCE = "paule_tpu_torch/csrc/ceiling_probes.cu"
 REPLACES = {
@@ -231,12 +238,16 @@ def _normal(gen, shape, scale, dev):
 
 
 def build_all():
-    """Both kernel libraries, one ``nvcc`` each, started together."""
+    """Both kernel libraries, one ``nvcc`` each, started together; then
+    both loaded, before any ``torch.profiler`` trace (which records no
+    kernel of a library loaded after its first start)."""
     with ThreadPoolExecutor(2) as pool:
         builds = [pool.submit(lib.build, verbose=True)
                   for lib in (K.LIBRARY, P.LIBRARY)]
         for b in builds:
             b.result()
+    for lib in (K.LIBRARY, P.LIBRARY):
+        lib.load()
 
 
 def check_core(dev, gen, seq, batch, hidden=H):
@@ -429,7 +440,10 @@ def device_kernels(fn):
 
 def check_one_kernel_per_call(dev, gen):
     """B1 at (402, 1), B2 at (402, 8), B3 at (201, 24) and B4 at (201, 1)
-    each run one device kernel per call.  -> ok."""
+    each run one device kernel per call, and so does each ceiling probe at
+    each of :data:`PROBE_SHAPES` (here and not in the probe phase: a trace
+    taken after the probe entry point's timing runs recorded no probe
+    kernel, PERF.md §7).  -> ok."""
     gx = _normal(gen, (402, 1, 4 * H), 0.5, dev)
     g1 = _normal(gen, (201, 24, 4 * H), 0.5, dev)
     w = _uniform(gen, (H, 4 * H), H ** -0.5, dev)
@@ -453,6 +467,16 @@ def check_one_kernel_per_call(dev, gen):
         names = device_kernels(fn)
         print(f"  {name}: {len(names)} device kernel(s) in one call: {names}")
         ok = ok and len(names) == 1
+    for seq, batch in PROBE_SHAPES:
+        inp = P.make_inputs(seq, batch, H, 1, dev)
+        fwd_args = (inp["gates"], inp["w_hh"], inp["h0"], inp["c0"])
+        bwd_args = (inp["acts"], inp["cs_prev"], inp["ghs"], inp["w_hh"])
+        for k in P.KERNELS:
+            args = fwd_args if k.__name__.startswith("fwd") else bwd_args
+            names = device_kernels(lambda: k(*args))
+            print(f"  {k.__name__} T={seq} B={batch}: {len(names)} device "
+                  f"kernel(s) in one call: {names}")
+            ok = ok and len(names) == 1
     return ok
 
 
@@ -536,21 +560,36 @@ def merge_errors(name, results, *others):
 
 
 def run_probes():
-    """The ceiling-probe entry point on the card; its launches are counted
-    from 0.  -> (ok, result, launches)."""
+    """The ceiling-probe entry point on the card at each of
+    :data:`PROBE_SHAPES`, its launches counted from 0 (one device kernel
+    per call is checked in :func:`check_one_kernel_per_call`).  -> (ok,
+    {(T, B): result}, launches)."""
     P.reset_launch_counts()
-    result = P.run(device="cuda")
+    results = {}
+    for seq, batch in PROBE_SHAPES:
+        results[(seq, batch)] = P.run(seq=seq, device="cuda", batch=batch)
+        P.report(results[(seq, batch)])
     launches = {k.__name__: k.launches for k in P.KERNELS}
-    P.report(result)
-    print(f"  launches during the probe run: {launches}")
-    ok = P.within_tolerance(result["errors"])
+    print(f"  launches during the probe runs: {launches}")
+    ok = all(P.within_tolerance(r["errors"]) for r in results.values())
     if not ok:
         print(f"probes: error above tolerance (forward {FWD_ATOL} absolute, "
               f"gradients {GRAD_RTOL} relative)", file=sys.stderr)
     if not all(launches.values()):
         print("probes: a kernel was not launched", file=sys.stderr)
         ok = False
-    return ok, result, launches
+    return ok, results, launches
+
+
+def probe_row(name, result):
+    """One probe's numbers at one shape, as the ``kernels`` line gives
+    them."""
+    t, e = result["times"][name], result["errors"][name]
+    return {"shape": list(result["shape"]), "ms": t["ms"],
+            "us_per_step": t["us_per_step"], "max_abs_err": e["max_abs_err"],
+            "rel_err": e["rel_err"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"]}
 
 
 def synth_target(n_frames, seed):
@@ -2697,14 +2736,15 @@ def main():
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
     for k in P.KERNELS:
         name = k.__name__
-        r = probe["times"][name]
+        rows = [probe_row(name, probe[shape]) for shape in PROBE_SHAPES]
         kernels.append({
             "name": f"probe_{name}", "route": "cuda", "source": PROBE_SOURCE,
             "replaces": REPLACES[name], "launches": probe_launches[name],
-            "max_abs_err": probe["errors"][name]["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"]})
+            **{key: rows[0][key] for key in (
+                "ms", "us_per_step", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "shapes": rows})
     print(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if not ok:

@@ -87,7 +87,12 @@ class CudaLibrary:
             fh.write(digest)
         return self.lib_path
 
-    def _load(self):
+    def load(self):
+        """Build if needed and load the library (once per process).  A
+        caller that traces with ``torch.profiler`` loads every library
+        before its first trace: the profiler records no kernel of a
+        library loaded after it first started (each library carries its
+        own static CUDA runtime)."""
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(self.build())
@@ -102,7 +107,7 @@ class CudaLibrary:
     def launch(self, fn_name, device, tensors, ints):
         """Call ``fn_name`` on the current stream of ``device`` with the
         tensors' pointers and the ``ints``; raises on a CUDA error."""
-        fn = getattr(self._load(), fn_name)
+        fn = getattr(self.load(), fn_name)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = fn(*[t.data_ptr() for t in tensors], *ints, stream)

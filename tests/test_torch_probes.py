@@ -2,8 +2,9 @@
 on the CPU, where both forms take B1's and B2's plain versions: against
 the Pallas kernels B1/B2 of ``paule_tpu.ops.pallas_lstm`` run in interpret
 mode at a small H, in float32 (2e-5 absolute forward, 1e-4 relative
-gradients, as ``tests/test_torch_lstm.py``); the entry point on the CPU;
-and an import that does nothing."""
+gradients, as ``tests/test_torch_lstm.py``), at batch 1, 3 and 8 (the
+batch the card times beside B=1); the entry point on the CPU, at the TPU
+probe's shape and at (402, 8); and an import that does nothing."""
 
 import os
 import subprocess
@@ -40,7 +41,7 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("variant", P.VARIANTS)
-@pytest.mark.parametrize("batch,seq", [(1, 6), (3, 9)])
+@pytest.mark.parametrize("batch,seq", [(1, 6), (3, 9), (8, 5)])
 def test_probes_match_pallas(interpret, variant, batch, seq):
     rng = np.random.default_rng(batch)
     hidden = 8
@@ -93,11 +94,15 @@ def test_variant_and_device_checks():
     assert all(k.launches == 0 for k in P.KERNELS)
 
 
-def test_entry_point_on_the_cpu(capsys):
-    """The entry point at the TPU probe's shape (~3 s on one CPU thread)."""
-    assert P.main(["--device", "cpu"]) == 0
+@pytest.mark.parametrize("argv,shape", [
+    ([], "T=1024 B=1 H=720"),
+    (["--seq", "402", "--batch", "8"], "T=402 B=8 H=720")])
+def test_entry_point_on_the_cpu(capsys, argv, shape):
+    """The entry point at the TPU probe's shape and at continue-learning's
+    (~3 s each on one CPU thread)."""
+    assert P.main(["--device", "cpu", *argv]) == 0
     out = capsys.readouterr().out
-    assert "T=1024 B=1 H=720" in out and "not measured" in out
+    assert shape in out and "not measured" in out
 
 
 def test_import_does_nothing():
