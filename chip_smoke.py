@@ -114,10 +114,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
 13. runs each of the port's measurement and corpus-quality tools
     (``paule_tpu_torch/tools/``: ``hot_timing``, ``roofline``,
     ``batch_scaling``, ``step_decomposition``, ``profile_device``,
-    ``bench_serve``, ``corpus_quality_run``, ``release_quality_run``) at a
-    cut budget (``drive_tools``), checking that every number is finite and
-    that each traced ``plan_resynth`` phase but the host's synthesis had
-    device time;
+    ``bench_serve``, ``corpus_quality_run``, ``release_quality_run``,
+    ``launch_overhead_probe``, ``synthesis_breakdown``,
+    ``bench_variants``) at a cut budget (``drive_tools``), checking that
+    every number is finite, that each traced ``plan_resynth`` phase but
+    the host's synthesis had device time, that the launch probe's chains
+    of 8 calls take longer than its single calls, that each synthesis
+    strategy called the plant as it should, and that each variant has its
+    ratio to ``acoustic_semvec``;
 14. prints one JSON line with the kernels' numbers (the launches of the
     main path's, the physical path's and the tp path's warm calls) and,
     last, one JSON line with the device.
@@ -174,9 +178,11 @@ from paule_tpu_torch.parallel import mesh as TMesh
 from paule_tpu_torch.planning.trainer import ModelTrainer
 from paule_tpu_torch.spectral import SpectralForwardModel
 from paule_tpu_torch.tools import (batch_scaling, bench_serve,
-                                   corpus_quality_run, hot_timing,
+                                   bench_variants, corpus_quality_run,
+                                   hot_timing, launch_overhead_probe,
                                    profile_device, release_quality_run,
-                                   roofline, step_decomposition)
+                                   roofline, step_decomposition,
+                                   synthesis_breakdown)
 from paule_tpu_torch.tools import kernel_ceiling_probes as P
 from paule_tpu_torch.tools import timing
 from paule_tpu_torch.tools import train_release_weights as R
@@ -2487,6 +2493,15 @@ TOOL_RUNS = {
         n_long=200)),
     "release_quality_run": (release_quality_run.run,
                             dict(n_utt=8, n_outer=1, n_inner=5)),
+    # the probe's own sweep at full budget, its roofline cut as above
+    "launch_overhead_probe": (launch_overhead_probe.run, dict(
+        roofline_kw=dict(step_counts=(2, 4, 8), reps=3, step_reps=3))),
+    "synthesis_breakdown": (synthesis_breakdown.run, dict(
+        reps=2, outers_per_rep=1, n_inner=5, n_epochs=1, n_batches=1,
+        batch_size=4)),
+    "bench_variants": (bench_variants.run, dict(
+        reps=2, outers_per_rep=1, n_inner=5, n_epochs=1, n_batches=1,
+        batch_size=4)),
 }
 
 
@@ -2557,6 +2572,74 @@ def drive_tools():
         f"{k} wall {v['corpus_wall_s']:.3f} s, median "
         f"{v['median_final_prod_loss']:.4f}"
         for k, v in out["release_quality_run"]["rows"].items()))
+    return check_new_tools(out) and ok
+
+
+def check_new_tools(out):
+    """Prints the headline numbers of ``launch_overhead_probe``,
+    ``synthesis_breakdown`` and ``bench_variants`` (``drive_tools``' run)
+    and checks them: the probe's chains of 8 calls slower than its single
+    calls at both lengths with a finite per-step cost; ``per_snapshot``
+    synthesising snapshot by snapshot and the batch strategies in batch
+    calls, each strategy's plant calls exactly as many as its plans,
+    outer iterations and inner steps give; each variant's paired ratio
+    finite.  -> ok."""
+    ok = True
+    lo = out["launch_overhead_probe"]
+    for tag, fit in lo["per_launch"].items():
+        dev = lo["per_launch_device"][tag]
+        walls = lo["walls_ms"][tag]
+        print(f"  launch_overhead_probe {tag}: per step "
+              f"{fit['per_step_us']:.4f} µs host / {dev['per_step_us']:.4f} "
+              f"device, fixed per call {fit['per_launch_fixed_us']:.2f} µs "
+              f"host / {dev['per_launch_fixed_us']:.2f} device; walls ms "
+              f"{walls}")
+        t_lens = sorted({key.split("_")[0] for key in walls})
+        if not (np.isfinite(fit["per_step_us"]) and all(
+                walls[f"{t}_K8"] > walls[f"{t}_K1"] for t in t_lens)):
+            print(f"tools: launch_overhead_probe {tag}: K=8 not slower "
+                  f"than K=1, or a non-finite per-step cost", file=sys.stderr)
+            ok = False
+    proj = lo["projection"]
+    print(f"  launch_overhead_probe projection: fixed-cost bill "
+          f"{proj['fixed_cost_bill_ms']:.4f} ms host / "
+          f"{proj['device_fixed_cost_bill_ms']:.4f} device per inner step "
+          f"against measured - floor {proj['measured_minus_floor_ms']:.3f} "
+          "ms")
+    sb = out["synthesis_breakdown"]
+    print(f"  synthesis_breakdown: C++ floor "
+          f"{sb['standalone_cpp_ms_per_snapshot']} ms per snapshot; " +
+          "; ".join(f"{n} {sb[n]['s_per_outer_median']} s per outer, "
+                    f"synthesis {sb[n]['synthesis_ms_per_snapshot']} ms per "
+                    f"snapshot, plant calls {sb[n]['native_calls']}"
+                    for n in synthesis_breakdown.STRATEGIES))
+    n_inner = TOOL_RUNS["synthesis_breakdown"][1]["n_inner"]
+    for name in synthesis_breakdown.STRATEGIES:
+        res = sb[name]
+        plans, outers = res["plan_resynth_calls"], res["outers_run"]
+        # one speak per plan for the initial trajectory; then one speak
+        # per snapshot (one per inner step), one batch call per outer
+        # iteration, or one per chunk of plan_overlap=2
+        want = {"per_snapshot": {"speak": plans + outers * n_inner,
+                                 "speak_batch": 0},
+                "batch": {"speak": plans, "speak_batch": outers},
+                "batch_overlap": {"speak": plans,
+                                  "speak_batch": 2 * outers}}[name]
+        if res["native_calls"] != want:
+            print(f"tools: synthesis_breakdown {name} called the plant "
+                  f"{res['native_calls']}, not {want}", file=sys.stderr)
+            ok = False
+    bv = out["bench_variants"]
+    print("  bench_variants, s per outer: " + ", ".join(
+        f"{n} {bv[n]['s_per_outer_median']}" + (
+            f" (x{bv[n]['vs_acoustic_semvec_median']} of acoustic_semvec)"
+            if n != "acoustic_semvec" else "")
+        for n, _kw in bench_variants.VARIANTS))
+    for name in ("speech_classifier", "somatosensory"):
+        if not np.isfinite(bv[name]["vs_acoustic_semvec_median"]):
+            print(f"tools: bench_variants {name} has no finite ratio",
+                  file=sys.stderr)
+            ok = False
     return ok
 
 

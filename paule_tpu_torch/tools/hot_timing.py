@@ -29,13 +29,18 @@ from ..ops.normalize import inv_normalize_cp
 from . import timing
 
 
-def seeded_target(n_frames, seed=0):
-    """``(sig, sr)`` synthesised from a seeded smooth cp trajectory of
-    ``n_frames + 1`` frames (``tools/hot_timing.py:36-39``)."""
+def seeded_cp(n_frames, seed=0):
+    """A seeded smooth normalised cp trajectory of ``n_frames + 1`` frames
+    (``tools/hot_timing.py:36-38``)."""
     rng = np.random.default_rng(seed)
-    cp = np.clip(rng.normal(0, 0.05, (n_frames + 1, 30)).cumsum(0) * 0.2,
-                 -1, 1)
-    return synth.speak(inv_normalize_cp(cp))
+    return np.clip(rng.normal(0, 0.05, (n_frames + 1, 30)).cumsum(0) * 0.2,
+                   -1, 1)
+
+
+def seeded_target(n_frames, seed=0):
+    """``(sig, sr)`` synthesised from :func:`seeded_cp`
+    (``tools/hot_timing.py:36-39``)."""
+    return synth.speak(inv_normalize_cp(seeded_cp(n_frames, seed)))
 
 
 def run(*, device="cuda", paule=None, n_outer=10, t=402, n_inner=25,

@@ -9,8 +9,10 @@ kernel's time.
 
 import json
 import subprocess
+import sys
 import time
 
+import numpy as np
 import torch
 
 #: published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s
@@ -120,6 +122,71 @@ def wall_s(fn, device):
     out = fn()
     sync(device)
     return time.perf_counter() - t0, out
+
+
+def plan_kwargs(target, *, n_inner=25, n_epochs=10, n_batches=3,
+                batch_size=8):
+    """The ``plan_resynth`` keywords of the JAX tools' budget
+    (``tools/bench_variants.py:45-48``, ``tools/synthesis_breakdown.py:
+    77-80``) but ``n_outer``; the budget keywords cut it."""
+    return dict(target_acoustic=target, objective="acoustic_semvec",
+                initialize_from="acoustic", log_ii=1, log_semantics=True,
+                n_inner=n_inner, n_batches=n_batches, batch_size=batch_size,
+                n_epochs=n_epochs, continue_learning=True, verbose=False)
+
+
+def budget_line(n_inner, n_epochs, n_batches, batch_size):
+    """-> the budget as the JAX tools' results state it."""
+    return (f"per outer: {n_inner} inner steps, log_ii=1, continue-learning "
+            f"({n_batches}x{batch_size}x{n_epochs})")
+
+
+def interleaved_rounds(runs, reps, outers, device, tag):
+    """Warm each ``plan_resynth`` of ``runs`` (``{name: (paule, plan
+    keywords)}``) with one outer iteration, then plan ``outers`` hot outer
+    iterations with each in turn, ``reps`` rounds, so that a change in the
+    host's speed meets every entry of a round alike.  -> ``(walls,
+    splits)``: per name, each round's host seconds per outer iteration
+    (ending in a synchronize) and ``last_planning_timings`` per outer
+    iteration."""
+    for name, (model, kw) in runs.items():
+        print(f"[{tag}] warm {name}...", file=sys.stderr, flush=True)
+        model.plan_resynth(n_outer=1, **kw)
+    walls = {name: [] for name in runs}
+    splits = {name: [] for name in runs}
+    for rep in range(reps):
+        for name, (model, kw) in runs.items():
+            wall, _r = wall_s(
+                lambda: model.plan_resynth(n_outer=outers, **kw), device)
+            walls[name].append(wall / outers)
+            splits[name].append({k: v / outers for k, v in
+                                 model.last_planning_timings.items()})
+        print(f"[{tag}] round {rep + 1}/{reps}: " + " ".join(
+            f"{n}={w[-1]:.2f}s" for n, w in walls.items()),
+            file=sys.stderr, flush=True)
+    return walls, splits
+
+
+def spread(xs, ndigits=3):
+    """-> ``{"median", "iqr": [p25, p75], "all"}`` of ``xs``, each rounded
+    to ``ndigits`` as the JAX tools report them
+    (``tools/bench_variants.py:86-116``)."""
+    def q(p):
+        return round(float(np.percentile(np.asarray(xs), p)), ndigits)
+    return {"median": round(float(np.median(xs)), ndigits),
+            "iqr": [q(25), q(75)], "all": [round(x, ndigits) for x in xs]}
+
+
+def rounds_summary(walls, splits):
+    """The JAX tools' summary of one entry's rounds
+    (:func:`interleaved_rounds`): the per-outer wall's median, IQR and
+    values, and the median of each phase per outer iteration."""
+    s = spread(walls)
+    return {"s_per_outer_median": s["median"], "s_per_outer_iqr": s["iqr"],
+            "s_per_outer_all": s["all"],
+            "phase_split_s_median": {
+                k: round(float(np.median([x[k] for x in splits])), 3)
+                for k in splits[0]}}
 
 
 def leaf_numbers(obj, key=None):

@@ -208,7 +208,9 @@ def test_import_leaves_no_jax():
         "'serve', '__main__', 'pretrain', 'models.baselines', "
         "'tools.train_release_weights', 'spectral', 'visualize', 'util', "
         "'synth.speaker_import', 'synth.vtl_plant', 'dsp.formants', "
-        "'parallel.mesh', 'reference_bridge'):\n"
+        "'parallel.mesh', 'reference_bridge', "
+        "'tools.launch_overhead_probe', 'tools.synthesis_breakdown', "
+        "'tools.bench_variants'):\n"
         "    assert 'paule_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

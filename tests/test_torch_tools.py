@@ -6,12 +6,16 @@ each rung of the step decomposition's ladder gives the value and
 gradient, and its loop the trajectory, of its JAX counterpart built from
 ``paule_tpu.planning.engine``; the corpus recipes give the JAX recipe's
 cp arrays bit for bit; ``prod_loss_of`` agrees with the JAX recipe through
-the smooth stand-in plant; each tool's ``run(device="cpu")`` at a tiny
-budget returns the JAX tool's keys with finite numbers and no device
-metric; and each ``main`` raises without a card instead of running on the
-CPU."""
+the smooth stand-in plant; the launch probe's chain equals the JAX tool's,
+and its fit and the variants' and the synthesis breakdown's summaries equal
+what the JAX tools' ``main`` prints from the same timings; each tool's
+``run(device="cpu")`` at a tiny budget returns the JAX tool's keys with
+finite numbers and no device metric; and each ``main`` raises without a
+card instead of running on the CPU."""
 
 import importlib.util
+import io
+import json
 import math
 import os
 
@@ -28,6 +32,7 @@ from paule_tpu.models import embedder as JE
 from paule_tpu.models import forward as JF
 from paule_tpu.ops import losses as JL
 from paule_tpu.ops import lstm as JLS
+from paule_tpu.ops import pallas_lstm as PL
 from paule_tpu.ops.normalize import inv_normalize_cp as j_inv_cp
 from paule_tpu.ops.normalize import normalize_mel as j_norm_mel
 from paule_tpu.planning import engine as JEng
@@ -40,9 +45,11 @@ from paule_tpu_torch.planning import engine as TEng
 from paule_tpu_torch.planning.trainer import ModelTrainer
 from paule_tpu_torch.release import load_into
 from paule_tpu_torch.tools import (batch_scaling, bench_serve,
-                                   corpus_quality_run, hot_timing,
+                                   bench_variants, corpus_quality_run,
+                                   hot_timing, launch_overhead_probe,
                                    profile_device, release_quality_run,
-                                   roofline, step_decomposition, timing)
+                                   roofline, step_decomposition,
+                                   synthesis_breakdown, timing)
 from torch_parity import SmoothPlant
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -257,13 +264,261 @@ def test_prod_loss_of_matches_the_jax_recipe():
 
 
 # ---------------------------------------------------------------------------
+# the launch probe's chain and fit
+# ---------------------------------------------------------------------------
+
+def _f64_lstm_core():
+    """The Pallas ``lstm_core``'s contract in float64, which the kernel
+    (float32 only) cannot run: ``(gates_x, w_hh, h0, c0) -> (hs, cs)`` by
+    the JAX package's scan step, its gradient exact through ``hs`` and
+    blind to the cotangent of ``cs`` (``pallas_lstm.py:203-210``).  The
+    port's ``LSTMCore`` is held against the kernel itself in interpret mode
+    by ``tests/test_torch_lstm.py``."""
+    def scan(gates_x, w_hh, h0, c0):
+        def step(carry, gx):
+            h, c = carry
+            i, f, g, o = jnp.split(gx + h @ w_hh, 4, axis=-1)
+            c = jax.nn.sigmoid(f) * c + jax.nn.sigmoid(i) * jnp.tanh(g)
+            h = jax.nn.sigmoid(o) * jnp.tanh(c)
+            return (h, c), (h, c)
+        return jax.lax.scan(step, (h0, c0), gates_x)[1]
+
+    @jax.custom_vjp
+    def core(gates_x, w_hh, h0, c0):
+        return scan(gates_x, w_hh, h0, c0)
+
+    def core_fwd(*args):
+        return scan(*args), args
+
+    def core_bwd(args, cts):
+        ghs, _gcs = cts
+        return jax.vjp(lambda *a: scan(*a)[0], *args)[1](ghs)
+
+    core.defvjp(core_fwd, core_bwd)
+    return core
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["fwd", "fwdbwd"])
+@pytest.mark.parametrize("k_calls", [1, 3])
+def test_launch_chain_matches_the_jax_tool(k_calls, grad, monkeypatch):
+    """``chain_fn``'s scalar against the JAX tool's ``chain_fn`` (its
+    ``H=16``, ``B=1``) on the same seeded gates and ``w_hh``, float64."""
+    jax_tool = _jax_tool("launch_overhead_probe")
+    monkeypatch.setattr(jax_tool, "H", HIDDEN)
+    monkeypatch.setattr(jax_tool, "B", 1)
+    monkeypatch.setattr(PL, "lstm_core", _f64_lstm_core())
+    rng = np.random.default_rng(k_calls)
+    gates = rng.normal(0, 0.3, (10, 1, 4 * HIDDEN))
+    w_hh = rng.normal(0, 0.2, (HIDDEN, 4 * HIDDEN))
+    ref = float(jax_tool.chain_fn(k_calls, grad)(jnp.asarray(gates),
+                                                 jnp.asarray(w_hh)))
+    got = launch_overhead_probe.chain_fn(
+        k_calls, grad, hidden=HIDDEN, batch=1, device="cpu")(
+        torch.tensor(gates), torch.tensor(w_hh))
+    assert got.dtype == torch.float64
+    assert float(got) == pytest.approx(ref, rel=0, abs=1e-8)
+    assert abs(ref) > 1e-2
+
+
+def test_fit_launch_cost_equals_the_jax_tools(monkeypatch, capsys):
+    """``fit_launch_cost`` and the walls' table against what the JAX
+    tool's ``main`` prints from the same walls (its timing and chains
+    replaced, nothing written)."""
+    rng = np.random.default_rng(3)
+    walls = {tag: {(t, k): float(rng.uniform(2e-4, 6e-4)
+                                 + k * (rng.uniform(5e-6, 3e-5)
+                                        + t * rng.uniform(2e-6, 8e-6)))
+                   for t in (64, 256) for k in (1, 8)}
+             for tag in ("fwd", "fwdbwd")}
+    jax_tool = _jax_tool("launch_overhead_probe")
+    monkeypatch.setattr(jax_tool, "H", HIDDEN)
+    monkeypatch.setattr(jax_tool, "chain_fn", lambda k, grad: (
+        "fwdbwd" if grad else "fwd", k))
+    monkeypatch.setattr(jax_tool, "timed", lambda fn, gates, _w: walls[
+        fn[0]][(gates.shape[0], fn[1])])
+    monkeypatch.setattr(jax_tool, "open", lambda *a, **k: io.StringIO(),
+                        raising=False)
+    jax_tool.main()
+    ref = json.loads(capsys.readouterr().out)
+    for tag, w in walls.items():
+        assert launch_overhead_probe.fit_launch_cost(w) == (
+            ref["per_launch"][tag])
+        assert launch_overhead_probe.walls_ms(w) == ref["walls_ms"][tag]
+
+
+# ---------------------------------------------------------------------------
+# the variants and the synthesis breakdown against the JAX tools
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", range(3))
+def test_variants_build_as_the_jax_tool(variant, monkeypatch):
+    """``build``'s instance keywords and plan keywords against the JAX
+    ``build``'s (its ``Paule`` a stub)."""
+    import paule_tpu.api as JA
+
+    made = []
+    monkeypatch.setattr(JA, "Paule", lambda **kw: made.append(kw))
+    jax_tool = _jax_tool("bench_variants")
+    name, kwargs = bench_variants.VARIANTS[variant]
+    assert jax_tool.VARIANTS[variant] == (name, kwargs)
+    target = object()
+    _p, kw_ref = jax_tool.build(kwargs, target)
+    got = []
+    _p, kw = bench_variants.build(kwargs, target,
+                                  lambda **k: got.append(k) or "paule")
+    assert kw == kw_ref and kw["target_acoustic"] is target
+    assert made == [dict(seed=1, **kwargs)] and got == [kwargs]
+
+
+class _Clock:
+    """A stand-in for a tool's ``time``: ``perf_counter`` returns 0 at each
+    start and the next scripted duration at each end."""
+
+    def __init__(self, durations):
+        self._durations = iter(durations)
+        self._started = False
+
+    def perf_counter(self):
+        self._started = not self._started
+        return 0.0 if self._started else next(self._durations)
+
+
+def _scripted_rounds(names, reps, seed):
+    """Seeded walls (for 2 outers) and phase splits of ``reps`` rounds over
+    ``names``, in the order the JAX tools take them."""
+    rng = np.random.default_rng(seed)
+    order = [(rep, n) for rep in range(reps) for n in names]
+    durations = [float(rng.uniform(0.5, 2.5)) for _ in order]
+    splits = [{k: float(rng.uniform(0.01, 0.9)) for k in (
+        "planning", "synthesis", "metrics", "continue_learning")}
+        for _ in order]
+    return order, durations, splits
+
+
+def _stub_jax_side(monkeypatch, tmp_path, splits):
+    """The JAX package's ``Paule`` a stub whose 2-outer calls report the
+    scripted ``splits`` in turn, ``SynthPool`` a stub, the backend "tpu",
+    and the working directory ``tmp_path``."""
+    import paule_tpu.api as JA
+    from paule_tpu import synth as JS
+
+    scripted = iter(splits)
+
+    class StubPaule:
+        def __init__(self, **kw):
+            self._synth_pool = None
+
+        def plan_resynth(self, n_outer, **kw):
+            if n_outer == 2:
+                self.last_planning_timings = next(scripted)
+
+    class StubPool:
+        def __init__(self, size):
+            del size
+
+        def speak_batch(self, cps):
+            del cps
+
+    monkeypatch.setattr(JA, "Paule", StubPaule)
+    monkeypatch.setattr(JS, "SynthPool", StubPool)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.chdir(tmp_path)
+
+
+def _per_outer(order, durations, splits, names):
+    walls = {n: [] for n in names}
+    per_outer = {n: [] for n in names}
+    for (_rep, n), d, split in zip(order, durations, splits):
+        walls[n].append(d / 2)
+        per_outer[n].append({k: v / 2 for k, v in split.items()})
+    return walls, per_outer
+
+
+def _run_jax_main(jax_tool, monkeypatch, capsys, durations):
+    monkeypatch.setattr(jax_tool, "REPS", 3)
+    monkeypatch.setattr(jax_tool, "time", _Clock(durations))
+    monkeypatch.setattr(jax_tool, "open", lambda *a, **k: io.StringIO(),
+                        raising=False)
+    assert jax_tool.main() == 0
+    return json.loads(capsys.readouterr().out)
+
+
+def test_variants_summary_equals_the_jax_tools(monkeypatch, capsys,
+                                               tmp_path):
+    names = [n for n, _ in bench_variants.VARIANTS]
+    order, durations, splits = _scripted_rounds(names, 3, seed=4)
+    _stub_jax_side(monkeypatch, tmp_path, splits)
+    ref = _run_jax_main(_jax_tool("bench_variants"), monkeypatch, capsys,
+                        durations)
+    walls, per_outer = _per_outer(order, durations, splits, names)
+    got = bench_variants.summarize(walls, per_outer, 3, 2,
+                                   timing.budget_line(25, 10, 3, 8))
+    assert got == ref
+    assert ref["somatosensory"]["vs_acoustic_semvec_iqr"][0] > 0
+    assert not any((tmp_path / "docs" / "measurements").iterdir())
+
+
+def test_breakdown_summary_equals_the_jax_tools(monkeypatch, capsys,
+                                                tmp_path):
+    names = list(synthesis_breakdown.STRATEGIES)
+    order, durations, splits = _scripted_rounds(names, 3, seed=5)
+    floors = [0.151, 0.1234567, 0.133]
+    _stub_jax_side(monkeypatch, tmp_path, splits)
+    ref = _run_jax_main(_jax_tool("synthesis_breakdown"), monkeypatch,
+                        capsys, floors + durations)
+    walls, per_outer = _per_outer(order, durations, splits, names)
+    got = synthesis_breakdown.summarize(
+        walls, per_outer, min(floors), 25, 3, 2,
+        timing.budget_line(25, 10, 3, 8) + ", T=402")
+    del ref["notes"]
+    for name in names:
+        assert set(got[name]) - set(ref[name]) == {"s_per_outer_iqr"}
+        del got[name]["s_per_outer_iqr"]
+    assert got == ref
+    assert ref["batch"]["overhead_vs_cpp_floor_ms"] != 0
+    assert not any((tmp_path / "docs" / "measurements").iterdir())
+
+
+@pytest.mark.parametrize("name,overlap,calls", [
+    ("per_snapshot", False, {"speak": 1 + 3, "speak_batch": 0}),
+    ("batch", False, {"speak": 1, "speak_batch": 1}),
+    ("batch_overlap", 2, {"speak": 1, "speak_batch": 2})])
+def test_breakdown_strategies_and_their_plant_calls(name, overlap, calls):
+    """The strategies' ``plan_overlap`` and the plant calls of one outer
+    iteration of 3 inner steps (counted on the smooth stand-in plant): one
+    ``speak`` for the initial trajectory, then the snapshots one by one
+    without the batch entry, else one batch call per chunk."""
+    made = []
+
+    def make(plan_overlap):
+        made.append(plan_overlap)
+        return _narrow_paule(1, plant=SmoothPlant(),
+                             plan_overlap=plan_overlap)
+
+    strategies = synthesis_breakdown.build_strategies(make)
+    try:
+        assert made == [False, False, 2]
+        model = strategies[name]
+        assert model.plan_overlap == overlap
+        target = SmoothPlant().speak(j_inv_cp(
+            JP.random_cp_trajectory(np.random.default_rng(6), 24)))
+        model.plan_resynth(n_outer=1, **timing.plan_kwargs(
+            target, n_inner=3, n_epochs=1, n_batches=1, batch_size=2))
+        assert dict(model.plant.calls) == calls
+    finally:
+        for model in strategies.values():
+            model.close()
+
+
+# ---------------------------------------------------------------------------
 # each tool's run on the CPU, and its main without a card
 # ---------------------------------------------------------------------------
 
-def _narrow_paule(seed, pretrained_dir="random"):
-    """A CPU float64 ``Paule`` whose forward, inverse and embedder models
-    are seeded at H=16, with trainers for them."""
-    p = Paule(seed=seed, pretrained_dir=pretrained_dir, **F64)
+def _narrow_paule(seed, pretrained_dir="random", **kw):
+    """A CPU float64 ``Paule`` (``kw`` its further keywords) whose forward,
+    inverse and embedder models are seeded at H=16, with trainers for
+    them."""
+    p = Paule(seed=seed, pretrained_dir=pretrained_dir, **F64, **kw)
     gen = torch.Generator().manual_seed(seed)
     for name, module in (
             ("pred_model", ForwardModel(num_lstm_layers=1,
@@ -294,8 +549,14 @@ def _with(seed, tool_run, **kw):
 #: kernels' launches (``pallas_lstm_active`` -> ``lstm_kernels_active``)
 #: and rates against the card's float32 peak (``mfu_vs_bf16_peak_B1`` ->
 #: ``mfu_vs_f32_peak_B1``); the release tool drops the JAX run's own
-#: babble median (``r4_babble_bootstrap_median``)
+#: babble median (``r4_babble_bootstrap_median``); the launch probe's
+#: projection measures its gap in the same process (``r4_gap_ms`` ->
+#: ``measured_minus_floor_ms``)
 SMALL = dict(hidden=HIDDEN, t_cp=SEQ)
+ROOF_SMALL = dict(t_cp=SEQ, t_lens=(4, 16, 64), step_counts=(1, 3, 6),
+                  reps=2, step_reps=2)
+TINY_PLAN = dict(reps=2, outers_per_rep=1, t=24, n_inner=2, n_epochs=1,
+                 n_batches=1, batch_size=2)
 RUNS = {
     "hot_timing": (
         {"hot_wall_s", "timings", "final_prod_loss", "n_outer", "t_frames"},
@@ -339,11 +600,30 @@ RUNS = {
         lambda: release_quality_run.run(
             device="cpu", make_paule=lambda d: _narrow_paule(2, d), n_utt=4,
             n_outer=1, n_inner=2, max_batches=(2, 4))),
+    "launch_overhead_probe": (
+        {"backend", "hidden", "batch", "reps", "walls_ms", "per_launch",
+         "projection"},
+        lambda: launch_overhead_probe.run(device="cpu", hidden=HIDDEN,
+                                          reps=2, roofline_kw=ROOF_SMALL)),
+    "synthesis_breakdown": (
+        {"budget", "method", "standalone_cpp_ms_per_snapshot",
+         "per_snapshot", "batch", "batch_overlap", "notes"},
+        lambda: synthesis_breakdown.run(
+            device="cpu", make_paule=lambda overlap: _narrow_paule(
+                1, plan_overlap=overlap), **TINY_PLAN)),
+    "bench_variants": (
+        {"budget", "method", "acoustic_semvec", "speech_classifier",
+         "somatosensory"},
+        lambda: bench_variants.run(
+            device="cpu", make_paule=lambda **kw: _narrow_paule(1, **kw),
+            **TINY_PLAN)),
 }
 #: device metrics, ``None`` on the CPU
 DEVICE_METRICS = {"card", "planning_flops_per_s", "mfu_vs_f32_peak_B1",
                   "flops_per_s", "mfu_vs_f32_peak", "device_busy_s",
-                  "device_busy_share", "device_busy_share_of_untraced"}
+                  "device_busy_share", "device_busy_share_of_untraced",
+                  "per_launch_device", "device_walls_ms",
+                  "device_fixed_cost_bill_ms"}
 
 
 @pytest.mark.parametrize("name", sorted(RUNS))
@@ -369,6 +649,18 @@ def test_run_on_the_cpu_gives_the_jax_keys(name):
         assert set(out["profiler_trace"]) == {
             "planning", "synthesis", "metrics", "continue_learning"}
         assert out["lstm_kernels_active"] is False
+    if name == "launch_overhead_probe":
+        assert set(out["per_launch"]) == {"fwd", "fwdbwd"}
+        assert out["projection"]["launch_pairs_per_inner_step"] == 2
+    if name == "synthesis_breakdown":
+        # 3 plan_resynth calls of 1 outer iteration, 2 snapshots each
+        assert out["per_snapshot"]["native_calls"] == {
+            "speak": 3 + 3 * 2, "speak_batch": 0}
+        assert out["batch_overlap"]["native_calls"] == {
+            "speak": 3, "speak_batch": 3 * 2}
+    if name == "bench_variants":
+        for variant in ("speech_classifier", "somatosensory"):
+            assert len(out[variant]["vs_acoustic_semvec_all"]) == 2
     if name == "release_quality_run":
         assert set(out["rows"]) == {"release_mb2", "release_mb4",
                                     "random_init"}
@@ -379,7 +671,8 @@ def test_run_on_the_cpu_gives_the_jax_keys(name):
 
 @pytest.mark.parametrize("tool", [
     hot_timing, roofline, batch_scaling, step_decomposition, profile_device,
-    bench_serve, corpus_quality_run, release_quality_run],
+    bench_serve, corpus_quality_run, release_quality_run,
+    launch_overhead_probe, synthesis_breakdown, bench_variants],
     ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_main_without_a_card_raises(tool, monkeypatch):
     """``main`` measures on the card only; it never falls back to the
