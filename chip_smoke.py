@@ -161,6 +161,7 @@ from paule_tpu_torch import reference_bridge as RB
 from paule_tpu_torch import release as REL
 from paule_tpu_torch import serve as S
 from paule_tpu_torch import synth
+from paule_tpu_torch import tracing
 from paule_tpu_torch.__main__ import main as cli_main
 from paule_tpu_torch.api import Paule
 from paule_tpu_torch.dsp import audio as audio_io
@@ -510,14 +511,14 @@ def _covered(union, a, b):
 
 def device_busy_share(run, untraced, scope="plan_resynth", activities=None):
     """One more call of ``run()`` under ``torch.profiler``, not timed: per
-    phase (the ``<scope>.<phase>`` ranges of ``paule_tpu_torch.api`` and
-    ``parallel.batched``, summed over their occurrences), the seconds in
-    which the card ran a kernel or a copy, as a share of the traced call's
-    phase wall time and of the untraced call's (``untraced``: {phase:
-    seconds}; the profiler slows the host, not the card).  With
-    ``activities`` (a dict), also fills in per phase the number of device
-    activities (kernels and copies) that start inside it.  -> {phase:
-    share of the traced wall}."""
+    phase of ``untraced`` (the tracer's ``<scope>.<phase>.<leaf>`` ranges
+    grouped by phase, or a tool's ``<scope>.<phase>`` ranges, summed over
+    their occurrences), the seconds in which the card ran a kernel or a
+    copy, as a share of the traced call's phase wall time and of the
+    untraced call's (``untraced``: {phase: seconds}; the profiler slows the
+    host, not the card).  With ``activities`` (a dict), also fills in per
+    phase the number of device activities (kernels and copies) that start
+    inside it.  -> {phase: share of the traced wall}."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -527,8 +528,9 @@ def device_busy_share(run, untraced, scope="plan_resynth", activities=None):
     for e in prof.events():
         span = (e.time_range.start, e.time_range.end)
         if e.name.startswith(scope + "."):
-            if e.device_type == torch.autograd.DeviceType.CPU:
-                windows[e.name.split(".", 1)[1]].append(span)
+            if (e.device_type == torch.autograd.DeviceType.CPU
+                    and e.name.split(".")[1] in untraced):
+                windows[e.name.split(".")[1]].append(span)
         elif e.device_type == torch.autograd.DeviceType.CUDA:
             device.append(span)
     busy = _union(device)
@@ -816,24 +818,27 @@ TUBE_SERIES = ("prod_tube_loss_steps", "pred_tube_mel_loss_steps",
 TUBE_MODEL_LOSSES = ("tube_model_loss", "tube_mel_model_loss")
 
 
+#: the tracer's LSTM op (family, direction) -> the kernel wrapper's name
+OP_KERNELS = {("single", "fwd"): "lstm_fwd", ("single", "bwd"): "lstm_bwd",
+              ("pair", "fwd"): "lstm_stack2_fwd",
+              ("pair", "bwd"): "lstm_stack2_bwd"}
+
+
 @contextlib.contextmanager
 def shape_tally():
     """Inside the block, count the LSTM kernels' launches by kernel and
-    ``(T, B, H)``, from the arguments each wrapper hands the library (the
-    wrappers' own counts are untouched).  -> the Counter of {(kernel, T, B,
-    H): launches}."""
+    ``(T, B, H)``: the block runs as one traced call
+    (``paule_tpu_torch.tracing``), whose op records, those of the calls
+    inside it included, give them (the launches on the card: ops with a
+    device time).  -> the Counter of {(kernel, T, B, H): launches}, filled
+    in when the block ends."""
     tally = collections.Counter()
-    launch = K._launch
-
-    def counted(name, dev, tensors, ints):
-        tally[(name.removeprefix("paule_"), *ints[:3])] += 1
-        return launch(name, dev, tensors, ints)
-
-    K._launch = counted
-    try:
+    with tracing.call("shape_tally", force=True) as rec:
         yield tally
-    finally:
-        K._launch = launch
+    for o in rec.record["ops"]:
+        if o["device_ms"] is not None:
+            tally[(OP_KERNELS[o["family"], o["direction"]], o["T"], o["B"],
+                   o["H"])] += o["count"]
 
 
 def launches_by_shape(fn):

@@ -16,9 +16,14 @@ the default, which fails without one) or, with ``--device cpu``, on the
 CPU; ``synth``, ``seg2wav`` and ``speaker-import`` run on the host.
 ``plan --visualize`` also writes the plots of
 :func:`paule_tpu_torch.visualize.visualize_results` (matplotlib needed).
+``plan`` and ``corpus`` with ``--trace PATH`` trace every planning call
+(:mod:`paule_tpu_torch.tracing`) and write the call records, the last 64,
+to ``PATH`` as JSON lines when the command ends.
 """
 
 import argparse
+import contextlib
+import json
 import os
 import pickle
 import sys
@@ -46,6 +51,30 @@ def _add_plan_args(p):
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device of the models (default: cuda)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="trace every planning call and write the call "
+                        "records to PATH as JSON lines")
+
+
+@contextlib.contextmanager
+def _traced(path):
+    """With ``path``, every planning call inside the block is traced, and
+    the finished call records are written to ``path``, one JSON object a
+    line, when the block ends."""
+    if not path:
+        yield
+        return
+    from . import tracing
+
+    tracing.clear()
+    tracing.enable()
+    try:
+        yield
+    finally:
+        tracing.enable(False)
+        with open(path, "w") as fh:
+            for rec in tracing.calls():
+                fh.write(json.dumps(rec) + "\n")
 
 
 def _make_paule(args):
@@ -289,7 +318,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    with _traced(getattr(args, "trace", None)):
+        args.fn(args)
 
 
 if __name__ == "__main__":

@@ -29,7 +29,6 @@ the results equal the single-segment path's bit for bit.
 """
 
 import concurrent.futures
-import contextlib
 import os
 import pickle
 import random
@@ -40,6 +39,7 @@ import torch
 
 from . import checkpoint as CK
 from . import synth
+from . import tracing
 from .dsp.griffinlim import mel_to_sig
 from .dsp.mel import librosa_melspec, melspec_44100
 from .dsp.targets import audio_target_to_mel
@@ -84,17 +84,11 @@ PRETRAINED = {
 }
 
 
-@contextlib.contextmanager
-def _phase(timings, name, scope="plan_resynth"):
-    """Adds the wall time of the block to ``timings[name]`` and marks it as
-    ``<scope>.<name>`` in a ``torch.profiler`` trace."""
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(f"{scope}.{name}"):
-        yield
-    timings[name] += time.perf_counter() - t0
-
-
 def _np(t):
+    """A float64 numpy copy of tensor ``t`` (a host wait on a device
+    tensor)."""
+    if tracing.ON:
+        tracing.fetched(t)
     return t.detach().cpu().numpy().astype(np.float64)
 
 
@@ -110,8 +104,13 @@ class _HostCopy:
 
     def __init__(self, tensors, non_blocking):
         self._event = None
+        self._waited = False
         if non_blocking and any(t is not None and t.is_cuda
                                 for t in tensors.values()):
+            if tracing.ON:
+                for t in tensors.values():
+                    if t is not None:
+                        tracing.fetch_queued(t)
             self._host = {k: None if t is None else torch.empty(
                 t.shape, dtype=t.dtype, pin_memory=True).copy_(
                     t, non_blocking=True) for k, t in tensors.items()}
@@ -125,7 +124,11 @@ class _HostCopy:
         """The float64 numpy array of ``key``, or ``None``."""
         if self._event is None:
             return self._host[key]
-        self._event.synchronize()
+        if not self._waited:
+            if tracing.ON:
+                tracing.waited()
+            self._event.synchronize()
+            self._waited = True
         t = self._host[key]
         return None if t is None else _np(t)
 
@@ -347,12 +350,15 @@ class Paule:
                        self.speech_classifier, self.tube_embedder):
             if frozen is not None:
                 frozen.requires_grad_(False)
-        self.pred_trainer = ModelTrainer(self.pred_model, loss="rmse")
-        self.inv_trainer = ModelTrainer(self.inv_model, loss="cp_trajectory")
+        self.pred_trainer = ModelTrainer(self.pred_model, loss="rmse",
+                                         name="predictive")
+        self.inv_trainer = ModelTrainer(self.inv_model, loss="cp_trajectory",
+                                        name="inverse")
         if use_somatosensory_feedback:
-            self.tube_trainer = ModelTrainer(self.cp_tube_model, loss="rmse")
-            self.tube_mel_trainer = ModelTrainer(self.tube_mel_model,
-                                                 loss="rmse")
+            self.tube_trainer = ModelTrainer(self.cp_tube_model, loss="rmse",
+                                             name="cp_tube")
+            self.tube_mel_trainer = ModelTrainer(
+                self.tube_mel_model, loss="rmse", name="tube_mel")
         self.continue_data = ReplayBuffer(continue_data, rng=self._py_rng)
 
         self.synth_pool = synth.SynthPool(size=min(8, os.cpu_count() or 2),
@@ -443,8 +449,10 @@ class Paule:
     def _tensor(self, x):
         """A copy of ``x`` on the device (never a view of a numpy array
         that the caller keeps)."""
-        return torch.tensor(np.asarray(x), dtype=self.dtype,
-                            device=self.device)
+        t = torch.tensor(np.asarray(x), dtype=self.dtype, device=self.device)
+        if tracing.ON:
+            tracing.sent(t)
+        return t
 
     def _embed(self, mel):
         """The embedder's semvecs ``(B, 300)`` of the mels ``(B, T, 60)``, a
@@ -522,6 +530,8 @@ class Paule:
         the snapshots from ``first``."""
         snapshots = np.asarray(snapshots, dtype=np.float64)
         n_frames = snapshots.shape[1]
+        if tracing.ON:
+            tracing.count("snapshots", len(snapshots))
         somato = self.use_somatosensory_feedback
         sigs, tubes = [], []
         if self.synthesis_async and self._plant_has_batch:
@@ -669,6 +679,7 @@ class Paule:
                                      non_blocking=False))
         return torch.cat(snaps), fetches, jobs
 
+    @tracing.entry("plan_resynth")
     def plan_resynth(self, *, learning_rate_planning=0.01,
                      learning_rate_learning=0.001,
                      learning_rate_learning_inv=None,
@@ -714,7 +725,17 @@ class Paule:
 
         Returns :class:`PlanningResults`, or under a variant
         :class:`PlanningResultsWithSpeechClassifier` /
-        :class:`PlanningResultsWithSomatosensory`."""
+        :class:`PlanningResultsWithSomatosensory`.
+
+        Its phases' host seconds go to :attr:`last_planning_timings`; a
+        traced call (:mod:`.tracing`) records the leaves of each phase:
+        ``prelude`` (``target``, ``init``, ``baseline``), ``planning``
+        (``enqueue``, ``fetch``, ``log``), ``synthesis`` (``wait``, or
+        ``run`` without overlap), ``metrics`` (``flush``, ``prod``,
+        ``copy``, ``log``), ``continue_learning`` (``batch``, ``step``,
+        ``losses``, ``replay``) and ``final`` (``results``)."""
+        if tracing.ON:
+            tracing.leaf("target", phase="prelude")
         if seed:
             self.generator.manual_seed(seed)
             self.tube_generator.manual_seed(seed)
@@ -776,6 +797,8 @@ class Paule:
             target_semvec_dev = self._tensor(target_semvec)
 
         # ---------------- cp initialisation ----------------
+        if tracing.ON:
+            tracing.leaf("init")
         if initial_cp is None:
             if initialize_from == "acoustic":
                 with torch.no_grad():
@@ -809,6 +832,8 @@ class Paule:
                                          past_len=past_len)
 
         # ---------------- initial baseline ----------------
+        if tracing.ON:
+            tracing.leaf("baseline")
         with torch.no_grad():
             initial_pred_mel_dev = self.pred_model(xx)
             initial_pred_semvec = _np(self._embed(initial_pred_mel_dev))[0]
@@ -887,14 +912,18 @@ class Paule:
         deferred = []
 
         def flush():
-            with _phase(timings, "metrics"):
+            with tracing.phase(timings, "metrics"):
+                if tracing.ON:
+                    tracing.leaf("flush")
                 while deferred:
                     copy, finish = deferred.pop(0)
                     finish(copy.all())
 
         start = time.perf_counter()
         for ii_outer in range(n_outer):
-            with _phase(timings, "planning"):
+            with tracing.phase(timings, "planning"):
+                if tracing.ON:
+                    tracing.leaf("enqueue")
                 snaps_dev, fetches, jobs = self._plan(
                     models, xx, optimizer, chunks, target_mel_dev,
                     target_semvec_dev, objective=objective,
@@ -902,11 +931,15 @@ class Paule:
                     want_semvec=want_semvec, log_gradients=log_gradients,
                     verbose=verbose)
             flush()
-            with _phase(timings, "planning"):
+            with tracing.phase(timings, "planning"):
+                if tracing.ON:
+                    tracing.leaf("fetch")
                 host = _gather(fetches)
                 subs = engine.SubLosses(*host["subs"])
                 snapshots, pred_mels = host["xx_pre"], host["pred_mel"]
                 pred_semvecs = host.get("pred_semvec")
+                if tracing.ON:
+                    tracing.leaf("log")
                 for s in range(n_segments):
                     logs["planned_loss_steps"].append(float(subs.total[s]))
                     logs["planned_mel_loss_steps"].append(
@@ -939,7 +972,9 @@ class Paule:
                         print("Local Linear Loss: ",
                               float(subs.local_linear_loss[s]))
 
-            with _phase(timings, "synthesis"):
+            with tracing.phase(timings, "synthesis"):
+                if tracing.ON:
+                    tracing.leaf("wait" if jobs else "run")
                 if jobs:
                     # what did not overlap the planning
                     parts = [job.result() for job in jobs]
@@ -977,18 +1012,24 @@ class Paule:
                         target_mel[0], initial_pred_mel, initial_prod_mel,
                         pred_mels[-1], pm["prod_mel"][-1])
 
-            with _phase(timings, "metrics"):
+            with tracing.phase(timings, "metrics"):
+                if tracing.ON:
+                    tracing.leaf("prod")
                 pm_dev, prod_dev = self._prod_metrics(
                     sigs, snaps_dev, prod_tubes, target_mel_dev,
                     target_semvec_dev, want_semvec, fetch=False)
+                if tracing.ON:
+                    tracing.leaf("copy")
                 copy = _HostCopy(pm_dev, non_blocking=defer)
                 if defer:
                     deferred.append((copy, finish))
                 else:
+                    if tracing.ON:
+                        tracing.leaf("log")
                     finish(copy.all())
 
             if continue_learning and n_segments:
-                with _phase(timings, "continue_learning"):
+                with tracing.phase(timings, "continue_learning"):
                     self._continue_learning(
                         snaps_dev, prod_dev["prod_mel"],
                         prod_dev["prod_tube"], target_semvec_dev[0], logs,
@@ -1002,6 +1043,8 @@ class Paule:
         flush()
 
         # ---------------- final results ----------------
+        if tracing.ON:
+            tracing.leaf("results", phase="final")
         with torch.no_grad():
             pred_mel_dev = self.pred_model(xx)
             pred_semvec = _np(self._embed(pred_mel_dev))[0]
@@ -1159,7 +1202,11 @@ class Paule:
         the somatosensory variant, the produced tubes ``(L, T, 10)``, all on
         the device, then offer them to the replay buffer (counterpart of
         ``paule_tpu/api.py:1523-1693``, drawing from ``self._py_rng`` in
-        the same order)."""
+        the same order).  Traced leaves: ``batch`` (drawing and selecting
+        the rows of each batch), ``step`` (one Adam step), ``losses`` (the
+        epochs' losses to the host), ``replay``."""
+        if tracing.ON:
+            tracing.leaf("batch")
         n_prod = snapshots.shape[0]
         # the columns trained on; replay rows' tubes are read only for the
         # tube models, as in the JAX package
@@ -1203,6 +1250,8 @@ class Paule:
                        f"fill {n_batches} batches...", k)
             idx = torch.as_tensor(self._py_rng.sample(range(n_prod), k),
                                   device=snapshots.device)
+            if tracing.ON:
+                tracing.sent(idx)
             return {c: rows[idx] for c, rows in produced.items()}
 
         train = dict(batch_size=batch_size, n_epochs=n_epochs,
@@ -1222,10 +1271,14 @@ class Paule:
             logs["tube_mel_model_loss"].extend(
                 train_epochs(self.tube_mel_trainer, tubes, mels, **train))
         if continue_learning_inv:
+            if tracing.ON:
+                tracing.leaf("batch")
             rows = sample_training(add_training_data_inv)
             logs["inv_model_loss"].extend(train_epochs(
                 self.inv_trainer, rows["melspec_norm_synthesized"],
                 rows["cp_norm"], **train))
+        if tracing.ON:
+            tracing.leaf("replay")
         self.continue_data.append({
             "vector": [target_semvec] * n_prod, "cp_norm": list(snapshots),
             "melspec_norm_synthesized": list(prod_mels),

@@ -17,6 +17,7 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
 from .resample import resample
 
 SR = 44100
@@ -112,6 +113,9 @@ def mel_amplitude_44100(y):
     n_bins = 1 + N_FFT // 2
     re, im = spec[..., :n_bins], spec[..., n_bins:]
     fb = torch.as_tensor(mel_filterbank(), dtype=y.dtype, device=y.device)
+    if tracing.ON:
+        tracing.sent(basis)
+        tracing.sent(fb)
     return torch.sqrt(re * re + im * im) @ fb
 
 
@@ -127,5 +131,10 @@ def librosa_melspec(wav, sample_rate, *, device, dtype):
     wav = np.asarray(wav, dtype=np.float64)
     if sample_rate != SR:
         wav = resample(wav, sample_rate, SR)
-    mel = melspec_44100(torch.as_tensor(wav, dtype=dtype, device=device))
+    y = torch.as_tensor(wav, dtype=dtype, device=device)
+    if tracing.ON:
+        tracing.sent(y)
+    mel = melspec_44100(y)
+    if tracing.ON:
+        tracing.fetched(mel)
     return mel.cpu().numpy().astype(np.float64)

@@ -104,13 +104,22 @@ class CudaLibrary:
                 self._lib = lib
         return self._lib
 
-    def launch(self, fn_name, device, tensors, ints):
+    def launch(self, fn_name, device, tensors, ints, events=None):
         """Call ``fn_name`` on the current stream of ``device`` with the
-        tensors' pointers and the ``ints``; raises on a CUDA error."""
+        tensors' pointers and the ``ints``; raises on a CUDA error.
+        ``events``: a pair of timing events recorded on that stream right
+        before and after the call, so that they enclose the kernel and
+        nothing of the host's own work before it."""
         fn = getattr(self.load(), fn_name)
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+            stream = torch.cuda.current_stream(device)
+            args = [t.data_ptr() for t in tensors]
+            if events is None:
+                rc = fn(*args, *ints, stream.cuda_stream)
+            else:
+                events[0].record(stream)
+                rc = fn(*args, *ints, stream.cuda_stream)
+                events[1].record(stream)
         if rc != 0:
             raise RuntimeError(f"{fn_name} failed: CUDA error {rc}"
                                + _ERRORS.get(rc, ""))

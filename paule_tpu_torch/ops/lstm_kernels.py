@@ -12,8 +12,13 @@ Each wrapper takes the plain version only for tensors on the CPU.  For a
 CUDA tensor it launches its kernel (float32, contiguous, one device) or
 raises; nothing falls back.  Each wrapper counts its launches in a plain
 integer attribute, ``<wrapper>.launches``, so a run can show that it went
-through the kernel.  The kernel library is built with ``nvcc`` on first use
-into ``paule_tpu_torch/_build/`` and rebuilt when the source changes
+through the kernel.  While a traced call is open (:mod:`..tracing`), each
+wrapper also records the call as an LSTM op: family (``single``: B1/B2,
+``pair``: B3/B4), direction, T, B and H, timed on the card by an event
+pair recorded right around the kernel's launch, whatever kernel
+implements it.  The kernel
+library is built with ``nvcc`` on first use into
+``paule_tpu_torch/_build/`` and rebuilt when the source changes
 (:mod:`.cuda_build`).
 
 All four are persistent kernels: one cooperative launch per call, whose
@@ -33,6 +38,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import tracing
 from .cuda_build import CudaLibrary, check_tensor as _check
 
 LIBRARY = CudaLibrary("lstm.cu", {
@@ -240,6 +246,8 @@ def lstm_fwd_plain(gates_x, w_hh, h0, c0):
 def lstm_fwd(gates_x, w_hh, h0, c0):
     """B1.  Same contract as :func:`lstm_fwd_plain`."""
     if gates_x.device.type == "cpu":
+        if tracing.ON:
+            tracing.op("single", "fwd", *gates_x.shape[:2], w_hh.shape[0])
         return lstm_fwd_plain(gates_x, w_hh, h0, c0)
     seq, batch, four_h = gates_x.shape
     hidden = four_h // 4
@@ -253,8 +261,14 @@ def lstm_fwd(gates_x, w_hh, h0, c0):
     plan = fwd_plan(hidden, batch, *device_limits(dev.index))
     hs = torch.empty((seq, batch, hidden), device=dev, dtype=torch.float32)
     cs = torch.empty_like(hs)
-    _launch("paule_lstm_fwd", dev, (gates_x, w_hh, h0, c0, hs, cs),
+    args = ("paule_lstm_fwd", dev, (gates_x, w_hh, h0, c0, hs, cs),
             (seq, batch, hidden, *plan))
+    if tracing.ON:
+        events = tracing.op_events(dev)
+        _launch(*args, events=events)
+        tracing.op("single", "fwd", seq, batch, hidden, events, dev)
+    else:
+        _launch(*args)
     lstm_fwd.launches += 1
     return hs, cs
 
@@ -284,6 +298,8 @@ def lstm_bwd_plain(acts, cs_prev, ghs, w_hh):
 def lstm_bwd(acts, cs_prev, ghs, w_hh):
     """B2.  Same contract as :func:`lstm_bwd_plain`."""
     if acts.device.type == "cpu":
+        if tracing.ON:
+            tracing.op("single", "bwd", *acts.shape[:2], w_hh.shape[0])
         return lstm_bwd_plain(acts, cs_prev, ghs, w_hh)
     seq, batch, four_h = acts.shape
     hidden = four_h // 4
@@ -298,8 +314,14 @@ def lstm_bwd(acts, cs_prev, ghs, w_hh):
     dgates = torch.empty_like(acts)
     dh0 = torch.empty((batch, hidden), device=dev, dtype=torch.float32)
     dc0 = torch.empty_like(dh0)
-    _launch("paule_lstm_bwd", dev, (acts, cs_prev, ghs, w_hh, dgates, dh0,
+    args = ("paule_lstm_bwd", dev, (acts, cs_prev, ghs, w_hh, dgates, dh0,
                                     dc0), (seq, batch, hidden, *plan))
+    if tracing.ON:
+        events = tracing.op_events(dev)
+        _launch(*args, events=events)
+        tracing.op("single", "bwd", seq, batch, hidden, events, dev)
+    else:
+        _launch(*args)
     lstm_bwd.launches += 1
     return dgates, dh0, dc0
 
@@ -334,6 +356,8 @@ def lstm_stack2_fwd_plain(gates1, w_hh1, w2, b2, h01, c01, h02, c02):
 def lstm_stack2_fwd(gates1, w_hh1, w2, b2, h01, c01, h02, c02):
     """B3.  Same contract as :func:`lstm_stack2_fwd_plain`."""
     if gates1.device.type == "cpu":
+        if tracing.ON:
+            tracing.op("pair", "fwd", *gates1.shape[:2], w_hh1.shape[0])
         return lstm_stack2_fwd_plain(gates1, w_hh1, w2, b2, h01, c01, h02,
                                      c02)
     seq, batch, four_h = gates1.shape
@@ -354,9 +378,15 @@ def lstm_stack2_fwd(gates1, w_hh1, w2, b2, h01, c01, h02, c02):
     w2_t = torch.empty((4 * hidden, 2 * hp), device=dev, dtype=torch.float32)
     outs = [torch.empty((seq, batch, hidden), device=dev,
                         dtype=torch.float32) for _ in range(4)]
-    _launch("paule_lstm_stack2_fwd", dev,
+    args = ("paule_lstm_stack2_fwd", dev,
             (gates1, w_hh1, w2, b2, h01, c01, h02, c02, w1_t, w2_t, *outs),
             (seq, batch, hidden, *plan))
+    if tracing.ON:
+        events = tracing.op_events(dev)
+        _launch(*args, events=events)
+        tracing.op("pair", "fwd", seq, batch, hidden, events, dev)
+    else:
+        _launch(*args)
     lstm_stack2_fwd.launches += 1
     return tuple(outs)
 
@@ -390,6 +420,8 @@ def lstm_stack2_bwd_plain(acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2):
 def lstm_stack2_bwd(acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2):
     """B4.  Same contract as :func:`lstm_stack2_bwd_plain`."""
     if acts1.device.type == "cpu":
+        if tracing.ON:
+            tracing.op("pair", "bwd", *acts1.shape[:2], w_hh1.shape[0])
         return lstm_stack2_bwd_plain(acts1, acts2, cs1_prev, cs2_prev, ghs2,
                                      w_hh1, w2)
     seq, batch, four_h = acts1.shape
@@ -407,9 +439,15 @@ def lstm_stack2_bwd(acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2):
     plan = stack2_bwd_plan(hidden, batch, *device_limits(dev.index))
     dgates1 = torch.empty_like(acts1)
     dgates2 = torch.empty_like(acts2)
-    _launch("paule_lstm_stack2_bwd", dev,
+    args = ("paule_lstm_stack2_bwd", dev,
             (acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2, dgates1,
              dgates2), (seq, batch, hidden, *plan))
+    if tracing.ON:
+        events = tracing.op_events(dev)
+        _launch(*args, events=events)
+        tracing.op("pair", "bwd", seq, batch, hidden, events, dev)
+    else:
+        _launch(*args)
     lstm_stack2_bwd.launches += 1
     return dgates1, dgates2
 

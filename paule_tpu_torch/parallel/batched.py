@@ -37,7 +37,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..api import _np, _phase
+from .. import tracing
+from ..api import _np
 from ..ops import lstm as LS
 from ..planning import engine
 from . import mesh as mesh_mod
@@ -197,6 +198,7 @@ def plan_batch(paule_obj, target_mels, target_semvecs=None, *, mesh=None,
     return out
 
 
+@tracing.entry("plan_batch_resynth")
 def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
                        mesh=None, n_outer=5, n_inner=25,
                        learning_rate_planning=0.01, objective="acoustic",
@@ -206,8 +208,12 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
     """The batched counterpart of ``Paule.plan_resynth`` for the
     same-length utterances ``target_mels (B, F, 60)``
     (``paule_tpu/parallel/batched.py:170-334``; module docstring).  The
-    phases' wall times go to ``paule_obj.last_planning_timings`` and are
-    marked ``plan_batch_resynth.<phase>`` in a ``torch.profiler`` trace.
+    phases' wall times go to ``paule_obj.last_planning_timings``; a traced
+    call (:mod:`paule_tpu_torch.tracing`) records the leaves of each phase:
+    ``prelude`` (``shards``), ``planning`` (``shards``, ``to_host``),
+    ``synthesis`` (``run``), ``metrics`` (``prod``, ``log``),
+    ``continue_learning`` (``batch``, ``step``, ``sync_replicas``) and
+    ``final`` (``to_host``).
 
     -> a dict: ``planned_cp`` (B, 2F, 30); ``prod_sigs`` and ``prod_mels``
     of the last outer iteration; ``prod_loss_curve`` (n_outer, B) and, as
@@ -221,6 +227,8 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
     ``tube_mel_model_loss``.  ``mesh``: a
     :class:`~paule_tpu_torch.parallel.mesh.Mesh` whose ``dp`` divides B
     (module docstring), or ``None``."""
+    if tracing.ON:
+        tracing.leaf("shards", phase="prelude")
     if n_outer < 1:
         raise ValueError("n_outer must be >= 1")
     shards, target_mels, target_semvecs = _prepare_batch(
@@ -236,9 +244,6 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
     losses = {"pred": [], "tube": [], "tube_mel": []}
     sub_losses = []
 
-    def phase(name):
-        return _phase(timings, name, "plan_batch_resynth")
-
     def train_shared(trainer, name, all_in, all_out, log):
         """``n_epochs`` epochs over all B pairs, reshuffled each epoch and
         cut into batches of ``batch_size``, the last one smaller
@@ -247,13 +252,21 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
         mesh, a batch that ``dp`` divides trains sharded over the shards'
         replicas of the model ``name``, which take the weights after every
         step."""
+        if tracing.ON:
+            tracing.leaf("batch")
         replicas = [getattr(s.models, name) for s in shards]
         orders = torch.as_tensor(
             [paule_obj._py_rng.sample(range(b), b) for _ in range(n_epochs)],
             device=all_in.device)
+        if tracing.ON:
+            tracing.sent(orders)
         for order in orders:
             for start in range(0, b, batch_size):
+                if tracing.ON:
+                    tracing.leaf("batch")
                 idx = order[start:start + batch_size]
+                if tracing.ON:
+                    tracing.leaf("step")
                 if mesh is not None and len(idx) % mesh.shape["dp"] == 0:
                     log.append(trainer.train_batch(
                         mesh_mod.shard_batch(mesh, all_in[idx]),
@@ -262,22 +275,34 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
                 else:
                     log.append(trainer.train_batch(all_in[idx],
                                                    all_out[idx]))
+                if tracing.ON:
+                    tracing.leaf("sync_replicas")
                 mesh_mod.sync_replicas(trainer.model, replicas)
 
     for ii_outer in range(n_outer):
-        with phase("planning"):
+        with tracing.phase(timings, "planning"):
+            if tracing.ON:
+                tracing.leaf("shards")
             logs = plan_shards(
                 shards, n_steps=n_inner, objective=objective,
                 log_semantics=log_semantics, constraints=cons, device=device)
+            if tracing.ON:
+                tracing.leaf("to_host")
             sub_losses.append(_sub_losses_np(logs))
             cps_dev = _joined(shards, device)
             cps = _np(cps_dev)
-        with phase("synthesis"):
+        with tracing.phase(timings, "synthesis"):
+            if tracing.ON:
+                tracing.leaf("run")
             sigs, _sr, prod_tubes = paule_obj._synthesize(cps)
-        with phase("metrics"):
+        with tracing.phase(timings, "metrics"):
+            if tracing.ON:
+                tracing.leaf("prod")
             pm, pm_dev = paule_obj._prod_metrics(
                 sigs, cps_dev, prod_tubes, target_mels, target_semvecs,
                 want_semvec)
+            if tracing.ON:
+                tracing.leaf("log")
             for key in CURVES:
                 if key in pm:
                     curves.setdefault(key, []).append(pm[key])
@@ -286,7 +311,7 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
                 print(f"outer {ii_outer}: prod loss mean {prod.mean():.4f} "
                       f"max {prod.max():.4f}")
         if continue_learning:
-            with phase("continue_learning"):
+            with tracing.phase(timings, "continue_learning"):
                 train_shared(paule_obj.pred_trainer, "pred_model", cps_dev,
                              pm_dev["prod_mel"], losses["pred"])
                 if continue_learning_tube and somato:
@@ -296,10 +321,17 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
                     train_shared(paule_obj.tube_mel_trainer,
                                  "tube_mel_model", pm_dev["prod_tube"],
                                  pm_dev["prod_mel"], losses["tube_mel"])
+    if tracing.ON:
+        tracing.leaf("to_host", phase="final")
     paule_obj.last_planning_timings = timings
 
     def floats(log):
-        return torch.stack(log).tolist() if log else []
+        if not log:
+            return []
+        losses = torch.stack(log)
+        if tracing.ON:
+            tracing.fetched(losses)
+        return losses.tolist()
 
     out = {"planned_cp": cps, "prod_sigs": list(sigs),
            "prod_mels": pm["prod_mel"],

@@ -26,6 +26,7 @@ import copy
 
 import torch
 
+from .. import tracing
 from ..models.blocks import LSTMLayer, TPLSTMLayer
 
 
@@ -217,12 +218,18 @@ def reduce_grads(module, replicas):
 
 def sync_replicas(module, replicas):
     """Copy ``module``'s parameters and buffers into each replica that is
-    not ``module`` itself, each block of a split layer its columns."""
+    not ``module`` itself, each block of a split layer its columns.  A
+    traced call counts the call and the bytes copied."""
+    copies = [rep for rep in replicas if rep is not module]
     with torch.no_grad():
-        for rep in replicas:
-            if rep is module:
-                continue
+        for rep in copies:
             for p, q, cols in param_pairs(module, rep):
                 q.copy_(p if cols is None else p[..., cols])
             for name, buf in module.named_buffers():
                 rep.get_buffer(name).copy_(buf)
+    if tracing.ON:
+        tracing.count("sync_replicas")
+        tracing.count("sync_replicas_bytes", sum(
+            q.numel() * q.element_size() for rep in copies
+            for _p, q, _cols in param_pairs(module, rep)) + len(copies) * sum(
+                b.numel() * b.element_size() for b in module.buffers()))

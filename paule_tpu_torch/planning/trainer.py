@@ -20,6 +20,7 @@ import random
 
 import torch
 
+from .. import tracing
 from ..ops import losses as L
 from ..ops.padding import pad_batch
 from ..parallel.mesh import reduce_grads
@@ -96,9 +97,13 @@ class ModelTrainer:
 
     A model without parameters (the physical forward model) gets no
     optimizer (``optimizer`` is ``None``): a step computes the loss only,
-    as an Adam step on the JAX package's empty parameter tree does."""
+    as an Adam step on the JAX package's empty parameter tree does.
 
-    def __init__(self, model, *, loss="rmse", learning_rate=0.001):
+    ``name`` labels the model's Adam steps in a traced call
+    (:mod:`paule_tpu_torch.tracing`); the model's class name by default."""
+
+    def __init__(self, model, *, loss="rmse", learning_rate=0.001,
+                 name=None):
         if loss not in LOSSES:
             raise ValueError(f"loss must be one of {sorted(LOSSES)}, got "
                              f"{loss!r}")
@@ -110,6 +115,7 @@ class ModelTrainer:
             eps=1e-8) if params else None
         #: Adam steps taken
         self.steps = 0
+        self.name = name or type(model).__name__
 
     def set_learning_rate(self, lr):
         """Change the learning rate; the Adam moments are kept."""
@@ -153,6 +159,8 @@ class ModelTrainer:
             loss.backward()
             reduce_grads(self.model, copies)
             self.optimizer.step()
+            if tracing.ON:
+                tracing.adam_step(self.name)
         finally:
             for r in (self.model, *copies):
                 r.zero_grad(set_to_none=True)
@@ -182,7 +190,11 @@ def train_epochs(trainer, inps, tgts, *, batch_size, n_epochs, rng=random,
     (``paule_tpu/planning/trainer.py:257-301``); otherwise batches run in
     the epoch's order, padded by repeating the last frame.
     ``progress(epoch)`` is called after each epoch's steps are queued, with
-    no host sync."""
+    no host sync.  In a traced call the steps are the leaves ``batch``
+    (drawing and selecting a batch), ``step`` (its Adam step) and, at the
+    end, ``losses``."""
+    if tracing.ON:
+        tracing.leaf("batch")
     lens = [int(x.shape[0]) for x in inps]
     length_dict = build_length_dict(lens)
     plans = [create_epoch_batches(len(lens), batch_size,
@@ -204,19 +216,30 @@ def train_epochs(trainer, inps, tgts, *, batch_size, n_epochs, rng=random,
                        + [b for b in batches if len(b) != batch_size])
         losses = []
         for idx in batches:
+            if tracing.ON:
+                tracing.leaf("batch")
             if same_len:
                 sel = torch.as_tensor(idx, device=all_in.device)
+                if tracing.ON:
+                    tracing.sent(sel)
                 b_in, b_out = all_in[sel], all_out[sel]
             else:
                 outs = [tgts[i] for i in idx]
                 b_in = pad_batch([lens[i] for i in idx],
                                  [inps[i] for i in idx])
                 b_out = pad_batch([o.shape[0] for o in outs], outs)
+            if tracing.ON:
+                tracing.leaf("step")
             losses.append(trainer.train_batch(b_in, b_out))
         epoch_losses.append(mean_or_nan(losses, inps[0].device))
         if progress is not None:
             progress(epoch)
-    return torch.stack(epoch_losses).tolist()
+    if tracing.ON:
+        tracing.leaf("losses")
+    losses = torch.stack(epoch_losses)
+    if tracing.ON:
+        tracing.fetched(losses)
+    return losses.tolist()
 
 
 def mean_or_nan(losses, device):

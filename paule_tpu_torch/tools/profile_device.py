@@ -12,11 +12,13 @@ Measures:
    against the card's float32 rate (``timing.PEAK_F32``, 67 TFLOP/s: the
    port computes in full float32);
 3. a ``torch.profiler`` trace of one more hot call of 1 outer iteration,
-   not timed: per ``plan_resynth.<phase>`` range the seconds the card was
-   busy (kernels and copies) and their share of the traced phase and of
-   the untraced hot run's phase per outer iteration, the ten device
-   operations that took the most time, and the five longest idle gaps,
-   each with the host operations that ran inside it;
+   not timed: per phase (the tracer's ``plan_resynth.<phase>.<leaf>``
+   ranges grouped by phase) the seconds the card was busy (kernels and
+   copies) and their share of the traced phase and of the untraced hot
+   run's phase per outer iteration, the ten device operations that took
+   the most time, the five longest idle gaps, each with the host
+   operations that ran inside it, and per leaf its wall, busy and idle
+   seconds;
 4. the ``acoustic`` planning step at B=8 through
    ``parallel.batched.plan_batch_resynth`` (1 x 25 steps, no
    continue-learning): wall and FLOP/s, counting the forward model's
@@ -116,15 +118,19 @@ def _gaps(busy, a, b):
     return out
 
 
-def split_trace(events, scope="plan_resynth"):
-    """Per ``<scope>.<phase>`` range of a trace's ``events``
-    (``prof.events()``): its wall seconds, the seconds in which the card
-    ran a kernel or a copy and their share, the :data:`TOP_OPS` device
-    operations that took the most time in it, and its
+def split_trace(events, scope="plan_resynth", phases=None):
+    """Per phase of a trace's ``events`` (``prof.events()``), from the
+    tracer's ``<scope>.<phase>.<leaf>`` ranges (``paule_tpu_torch.
+    tracing``) grouped by phase: its wall seconds, the seconds in which the
+    card ran a kernel or a copy and their share, the :data:`TOP_OPS`
+    device operations that took the most time in it, its
     :data:`LONGEST_GAPS` longest device-idle gaps, each with the host
     operations that overlap it (by name, ms of overlap; nested host ranges
-    each count).  -> {phase: dict}."""
+    each count), and ``leaves``, each leaf's wall and device-busy seconds
+    and its number of ranges.  ``phases``: the phases to report (default:
+    all).  -> {phase: dict}."""
     windows = collections.defaultdict(list)
+    leaves = collections.defaultdict(list)
     device, host = [], []
     for e in events:
         span = (e.time_range.start, e.time_range.end)
@@ -134,12 +140,17 @@ def split_trace(events, scope="plan_resynth"):
                     or e.name.startswith(scope + ".")):
                 device.append((span, e.name))
         elif e.name.startswith(scope + "."):
-            windows[e.name.split(".", 1)[1]].append(span)
+            phase = e.name.split(".")[1]
+            if phases is None or phase in phases:
+                windows[phase].append(span)
+                if e.name.count(".") == 2:
+                    leaves[e.name].append(span)
         else:
             host.append((span, e.name))
     busy = _union(span for span, _name in device)
     out = {}
     for phase, spans in windows.items():
+        spans.sort()
         wall = sum(b - a for a, b in spans)
         ops = collections.defaultdict(lambda: [0.0, 0])
         for (a, b), name in device:
@@ -164,7 +175,15 @@ def split_trace(events, scope="plan_resynth"):
                 {"start_ms": (a - spans[0][0]) / 1e3, "ms": (b - a) / 1e3,
                  "host_ops": _host_ops_in(host, a, b)}
                 for a, b in gaps[:LONGEST_GAPS]] if device else [],
+            "leaves": {},
         }
+    for name, spans in leaves.items():
+        wall = sum(b - a for a, b in spans)
+        idle = sum(b - a for lo, hi in spans for a, b in _gaps(busy, lo, hi))
+        _scope, phase, leaf = name.split(".")
+        out[phase]["leaves"][leaf] = {
+            "wall_s": wall / 1e6, "count": len(spans),
+            "device_busy_s": (wall - idle) / 1e6 if device else None}
     return out
 
 
@@ -218,7 +237,7 @@ def run(*, device="cuda", paule=None, t_cp=T_CP, n_inner=25, n_outer=3,
         print("[profile] traced run (1 outer)...", file=sys.stderr,
               flush=True)
         phases = split_trace(trace(lambda: p.plan_resynth(n_outer=1, **kw),
-                                   device))
+                                   device), phases=split)
 
         tmel = normalize_mel(librosa_melspec(*target, device=p.device,
                                              dtype=p.dtype))

@@ -4,6 +4,7 @@ results; ``babble``, ``synth``, ``seg2wav`` and ``speaker-import`` write
 what the JAX package's commands write; ``sysinfo`` prints, and the card
 is the default device."""
 
+import json
 import os
 import pickle
 import subprocess
@@ -45,6 +46,34 @@ def test_plan_writes_results_audio_and_state(tmp_path, capsys):
             or os.path.exists(save + "_planned.flac"))
     assert os.path.exists(save + "_state.pkl")
     assert "saved" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("command", ["plan", "corpus"])
+def test_trace_writes_one_record_a_line(tmp_path, command):
+    """``--trace PATH``: the call records as JSON lines, the leaves named
+    ``<scope>.<phase>.<leaf>``; tracing is off again afterwards."""
+    from paule_tpu_torch import tracing
+
+    trace = str(tmp_path / "trace.jsonl")
+    if command == "plan":
+        argv = ["plan", "--target", _wav(str(tmp_path / "w.wav"), 24, 0),
+                "--save", str(tmp_path / "out" / "w")]
+        scopes = ["plan_resynth"]
+    else:
+        for name, seed in (("ba/u1_ba", 1), ("ba/u2_ba", 2)):
+            _wav(str(tmp_path / "data" / f"{name}.wav"), 24, seed)
+        argv = ["corpus", "--data-dir", str(tmp_path / "data"),
+                "--save-dir", str(tmp_path / "save"), "--batched", "2"]
+        scopes = ["plan_batch_resynth"]
+    main([*argv, *TINY, "--trace", trace])
+    assert not tracing.ON and not tracing._enabled
+    with open(trace) as fh:
+        records = [json.loads(line) for line in fh]
+    assert [r["scope"] for r in records] == scopes
+    leaves = [s["name"] for s in records[0]["spans"] if s["kind"] == "leaf"]
+    first = "enqueue" if command == "plan" else "shards"
+    assert f"{scopes[0]}.planning.{first}" in leaves
+    assert records[0]["ops"] and records[0]["counters"]["snapshots"] > 0
 
 
 def test_corpus_batched_writes_one_result_per_utterance(tmp_path, capsys):
