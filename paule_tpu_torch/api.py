@@ -460,6 +460,22 @@ class Paule:
         with torch.no_grad():
             return self.embedder(mel)
 
+    #: each planning model's attribute and its name in a traced call's
+    #: LSTM op records
+    TRACE_NAMES = (("pred_model", "predictive"), ("inv_model", "inverse"),
+                   ("embedder", "embedder"), ("cp_tube_model", "cp_tube"),
+                   ("tube_mel_model", "tube_mel"),
+                   ("tube_embedder", "tube_embedder"))
+
+    def _name_models(self):
+        """Give each planning model its :attr:`TRACE_NAMES` name (its
+        ``trace_name``), under which a traced call records its LSTM ops;
+        a model swapped in since is named too."""
+        for attr, name in self.TRACE_NAMES:
+            module = getattr(self, attr, None)
+            if module is not None:
+                module.trace_name = name
+
     def _models(self):
         """The planning models, as :mod:`.planning.engine` takes them."""
         return engine.Models(self.pred_model, self.embedder,
@@ -736,6 +752,7 @@ class Paule:
         ``losses``, ``replay``) and ``final`` (``results``)."""
         if tracing.ON:
             tracing.leaf("target", phase="prelude")
+            self._name_models()
         if seed:
             self.generator.manual_seed(seed)
             self.tube_generator.manual_seed(seed)

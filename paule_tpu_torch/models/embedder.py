@@ -12,6 +12,10 @@ from . import blocks as B
 
 class EmbeddingModel(nn.Module):
 
+    #: the model's name in a traced call's LSTM op records (as
+    #: :attr:`ForwardModel.trace_name`)
+    trace_name = None
+
     def __init__(self, input_size=60, output_size=300, hidden_size=720,
                  num_lstm_layers=1, post_upsampling_size=0, dropout=0.0):
         super().__init__()
@@ -31,7 +35,8 @@ class EmbeddingModel(nn.Module):
         (:func:`paule_tpu_torch.ops.lstm.lstm`)."""
         out, _state = LS.lstm([layer.params() for layer in self.lstm], x,
                               dropout=self.dropout, training=self.training,
-                              generator=generator, keep_masks=keep_masks)
+                              generator=generator, keep_masks=keep_masks,
+                              model=self.trace_name)
         out = B.gather_last_step(out, lens)
         if self.post_linear is not None:
             out = B.leaky_relu(self.post_linear(out))

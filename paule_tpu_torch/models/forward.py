@@ -15,6 +15,10 @@ class ForwardModel(nn.Module):
     """Stacked LSTM + linear + half-sequence pooling:
     cp ``(B, T, in)`` -> mel ``(B, T/2, out)``."""
 
+    #: the model's name in a traced call's LSTM op records (``Paule``
+    #: names its models; :func:`paule_tpu_torch.ops.lstm.lstm`)
+    trace_name = None
+
     def __init__(self, input_size=30, output_size=60, hidden_size=180,
                  num_lstm_layers=4, apply_half_sequence=True):
         super().__init__()
@@ -23,7 +27,8 @@ class ForwardModel(nn.Module):
         self.post_linear = B.Linear(hidden_size, output_size)
 
     def forward(self, x):
-        out, _state = LS.lstm([layer.params() for layer in self.lstm], x)
+        out, _state = LS.lstm([layer.params() for layer in self.lstm], x,
+                              model=self.trace_name)
         out = self.post_linear(out)
         if self.apply_half_sequence:
             t = out.shape[-2]

@@ -12,6 +12,10 @@ from . import blocks as B
 
 class InverseModelMelTimeSmoothResidual(nn.Module):
 
+    #: the model's name in a traced call's LSTM op records (as
+    #: ``ForwardModel.trace_name``)
+    trace_name = None
+
     def __init__(self, input_size=60, output_size=30, hidden_size=180,
                  num_lstm_layers=4, mel_smooth_layers=3,
                  mel_smooth_filter_size=3, resid_blocks=5,
@@ -35,7 +39,8 @@ class InverseModelMelTimeSmoothResidual(nn.Module):
         for block in self.mel_blocks:
             x = block(x) + x
         x = add_vel_and_acc_info(x)
-        out, _state = LS.lstm([layer.params() for layer in self.lstm], x)
+        out, _state = LS.lstm([layer.params() for layer in self.lstm], x,
+                              model=self.trace_name)
         out = double_sequence(self.post_linear(out))
         lstm_out = out
         for block in self.resid_blocks:

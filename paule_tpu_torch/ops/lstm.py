@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from .lstm_kernels import (LSTMCore, LSTMStack2, core_bwd, first_order_only,
                            lstm_fwd)
 
@@ -99,6 +100,7 @@ class ShardedLSTMCore(torch.autograd.Function):
         w_hh = gather(w_hh, h0.device)
         hs, cs = lstm_fwd(gates_x, w_hh, h0, c0)
         ctx.n, ctx.x_device = n, x.device
+        ctx.model = tracing.MODEL if tracing.ON else None
         ctx.save_for_backward(gates_x, w_hh, h0, c0, hs, cs, *xs, *w_ih)
         return hs, cs
 
@@ -108,7 +110,8 @@ class ShardedLSTMCore(torch.autograd.Function):
         n, need = ctx.n, ctx.needs_input_grad
         saved = ctx.saved_tensors
         xs, w_ih = saved[6:6 + n], saved[6 + n:]
-        hs_prev, dgates, dh0, dc0 = core_bwd(*saved[:6], ghs)
+        hs_prev, dgates, dh0, dc0 = core_bwd(*saved[:6], ghs,
+                                             model=ctx.model)
         dx, dw_ih, db, dw_hh = None, [None] * n, [None] * n, [None] * n
         widths = [w.shape[-1] for w in w_ih]
         for t, (d, xt, w) in enumerate(zip(dgates.split(widths, dim=-1),
@@ -194,7 +197,7 @@ def draw_keep_masks(layers, batch, seq, dropout, generator, device=None):
 
 
 def lstm(layers, x, *, dropout=0.0, training=False, generator=None,
-         keep_masks=None):
+         keep_masks=None, model=None):
     """Stacked LSTM over a sequence of per-layer parameter dicts.
 
     Two adjacent layers of equal hidden size (the upper one's input being
@@ -206,7 +209,19 @@ def lstm(layers, x, *, dropout=0.0, training=False, generator=None,
     ``x``'s device from ``generator`` (:func:`draw_keep_masks`), which
     must live there (no mask is drawn on the host and copied), or taken
     from ``keep_masks``, one boolean ``(B, T, H)`` tensor per boundary in
-    order (a mask drawn elsewhere, e.g. JAX's, replayed)."""
+    order (a mask drawn elsewhere, e.g. JAX's, replayed).  ``model``: the
+    name a traced call's op records give the stack's LSTM ops
+    (:func:`paule_tpu_torch.tracing.set_model`)."""
+    if not tracing.ON:
+        return _lstm(layers, x, dropout, training, generator, keep_masks)
+    before = tracing.set_model(model)
+    try:
+        return _lstm(layers, x, dropout, training, generator, keep_masks)
+    finally:
+        tracing.set_model(before)
+
+
+def _lstm(layers, x, dropout, training, generator, keep_masks):
     n = len(layers)
     dropout_active = dropout > 0.0 and training
     if dropout_active and keep_masks is None:

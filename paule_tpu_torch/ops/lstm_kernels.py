@@ -16,8 +16,9 @@ through the kernel.  While a traced call is open (:mod:`..tracing`), each
 wrapper also records the call as an LSTM op: family (``single``: B1/B2,
 ``pair``: B3/B4), direction, T, B and H, timed on the card by an event
 pair recorded right around the kernel's launch, whatever kernel
-implements it.  The kernel
-library is built with ``nvcc`` on first use into
+implements it, and the model that launched it: a forward takes
+``tracing.MODEL``, the autograd functions save it for their backward.
+The kernel library is built with ``nvcc`` on first use into
 ``paule_tpu_torch/_build/`` and rebuilt when the source changes
 (:mod:`.cuda_build`).
 
@@ -247,7 +248,8 @@ def lstm_fwd(gates_x, w_hh, h0, c0):
     """B1.  Same contract as :func:`lstm_fwd_plain`."""
     if gates_x.device.type == "cpu":
         if tracing.ON:
-            tracing.op("single", "fwd", *gates_x.shape[:2], w_hh.shape[0])
+            tracing.op("single", "fwd", *gates_x.shape[:2], w_hh.shape[0],
+                       model=tracing.MODEL)
         return lstm_fwd_plain(gates_x, w_hh, h0, c0)
     seq, batch, four_h = gates_x.shape
     hidden = four_h // 4
@@ -266,7 +268,8 @@ def lstm_fwd(gates_x, w_hh, h0, c0):
     if tracing.ON:
         events = tracing.op_events(dev)
         _launch(*args, events=events)
-        tracing.op("single", "fwd", seq, batch, hidden, events, dev)
+        tracing.op("single", "fwd", seq, batch, hidden, events, dev,
+                   tracing.MODEL)
     else:
         _launch(*args)
     lstm_fwd.launches += 1
@@ -295,11 +298,13 @@ def lstm_bwd_plain(acts, cs_prev, ghs, w_hh):
     return dgates, dh_rec, dc
 
 
-def lstm_bwd(acts, cs_prev, ghs, w_hh):
-    """B2.  Same contract as :func:`lstm_bwd_plain`."""
+def lstm_bwd(acts, cs_prev, ghs, w_hh, model=None):
+    """B2.  Same contract as :func:`lstm_bwd_plain`; ``model``: the name of
+    the model whose forward this is, for a traced call's op record."""
     if acts.device.type == "cpu":
         if tracing.ON:
-            tracing.op("single", "bwd", *acts.shape[:2], w_hh.shape[0])
+            tracing.op("single", "bwd", *acts.shape[:2], w_hh.shape[0],
+                       model=model)
         return lstm_bwd_plain(acts, cs_prev, ghs, w_hh)
     seq, batch, four_h = acts.shape
     hidden = four_h // 4
@@ -319,7 +324,8 @@ def lstm_bwd(acts, cs_prev, ghs, w_hh):
     if tracing.ON:
         events = tracing.op_events(dev)
         _launch(*args, events=events)
-        tracing.op("single", "bwd", seq, batch, hidden, events, dev)
+        tracing.op("single", "bwd", seq, batch, hidden, events, dev,
+                   model)
     else:
         _launch(*args)
     lstm_bwd.launches += 1
@@ -357,7 +363,8 @@ def lstm_stack2_fwd(gates1, w_hh1, w2, b2, h01, c01, h02, c02):
     """B3.  Same contract as :func:`lstm_stack2_fwd_plain`."""
     if gates1.device.type == "cpu":
         if tracing.ON:
-            tracing.op("pair", "fwd", *gates1.shape[:2], w_hh1.shape[0])
+            tracing.op("pair", "fwd", *gates1.shape[:2], w_hh1.shape[0],
+                       model=tracing.MODEL)
         return lstm_stack2_fwd_plain(gates1, w_hh1, w2, b2, h01, c01, h02,
                                      c02)
     seq, batch, four_h = gates1.shape
@@ -384,7 +391,8 @@ def lstm_stack2_fwd(gates1, w_hh1, w2, b2, h01, c01, h02, c02):
     if tracing.ON:
         events = tracing.op_events(dev)
         _launch(*args, events=events)
-        tracing.op("pair", "fwd", seq, batch, hidden, events, dev)
+        tracing.op("pair", "fwd", seq, batch, hidden, events, dev,
+                   tracing.MODEL)
     else:
         _launch(*args)
     lstm_stack2_fwd.launches += 1
@@ -417,11 +425,14 @@ def lstm_stack2_bwd_plain(acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2):
     return dgates1, dgates2
 
 
-def lstm_stack2_bwd(acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2):
-    """B4.  Same contract as :func:`lstm_stack2_bwd_plain`."""
+def lstm_stack2_bwd(acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2,
+                    model=None):
+    """B4.  Same contract as :func:`lstm_stack2_bwd_plain`; ``model`` as
+    for :func:`lstm_bwd`."""
     if acts1.device.type == "cpu":
         if tracing.ON:
-            tracing.op("pair", "bwd", *acts1.shape[:2], w_hh1.shape[0])
+            tracing.op("pair", "bwd", *acts1.shape[:2], w_hh1.shape[0],
+                       model=model)
         return lstm_stack2_bwd_plain(acts1, acts2, cs1_prev, cs2_prev, ghs2,
                                      w_hh1, w2)
     seq, batch, four_h = acts1.shape
@@ -445,7 +456,7 @@ def lstm_stack2_bwd(acts1, acts2, cs1_prev, cs2_prev, ghs2, w_hh1, w2):
     if tracing.ON:
         events = tracing.op_events(dev)
         _launch(*args, events=events)
-        tracing.op("pair", "bwd", seq, batch, hidden, events, dev)
+        tracing.op("pair", "bwd", seq, batch, hidden, events, dev, model)
     else:
         _launch(*args)
     lstm_stack2_bwd.launches += 1
@@ -490,14 +501,16 @@ def _shift(first, seq):
     return torch.cat([first[None], seq[:-1]], dim=0)
 
 
-def core_bwd(gates_x, w_hh, h0, c0, hs, cs, ghs):
+def core_bwd(gates_x, w_hh, h0, c0, hs, cs, ghs, model=None):
     """:class:`LSTMCore`'s backward through B2 from its saved tensors and
     the cotangent of ``hs``: -> ``(hs_prev, dgates, dh0, dc0)``, the
-    previous step's hidden states for the weight gradient."""
+    previous step's hidden states for the weight gradient (``model`` as
+    for :func:`lstm_bwd`)."""
     hidden = w_hh.shape[0]
     hs_prev = _shift(h0, hs)
     acts = activate(gates_x + hs_prev @ w_hh, hidden)
-    dgates, dh0, dc0 = lstm_bwd(acts, _shift(c0, cs), ghs.contiguous(), w_hh)
+    dgates, dh0, dc0 = lstm_bwd(acts, _shift(c0, cs), ghs.contiguous(), w_hh,
+                                model)
     return hs_prev, dgates, dh0, dc0
 
 
@@ -513,12 +526,14 @@ class LSTMCore(torch.autograd.Function):
     def forward(ctx, gates_x, w_hh, h0, c0):
         hs, cs = lstm_fwd(gates_x, w_hh, h0, c0)
         ctx.save_for_backward(gates_x, w_hh, h0, c0, hs, cs)
+        ctx.model = tracing.MODEL if tracing.ON else None
         return hs, cs
 
     @staticmethod
     @first_order_only
     def backward(ctx, ghs, _gcs):
-        hs_prev, dgates, dh0, dc0 = core_bwd(*ctx.saved_tensors, ghs)
+        hs_prev, dgates, dh0, dc0 = core_bwd(*ctx.saved_tensors, ghs,
+                                             model=ctx.model)
         dw_hh = (torch.einsum("tbh,tbg->hg", hs_prev, dgates)
                  if ctx.needs_input_grad[1] else None)
         return dgates, dw_hh, dh0, dc0
@@ -536,6 +551,7 @@ class LSTMStack2(torch.autograd.Function):
                                              h02, c02)
         ctx.save_for_backward(gates1, w_hh1, w2, b2, hs1, cs1, hs2, cs2,
                               h01, c01, h02, c02)
+        ctx.model = tracing.MODEL if tracing.ON else None
         return hs1, cs1, hs2, cs2
 
     @staticmethod
@@ -550,7 +566,7 @@ class LSTMStack2(torch.autograd.Function):
         acts2 = activate(b2 + cat2 @ w2, hidden)
         dgates1, dgates2 = lstm_stack2_bwd(
             acts1, acts2, _shift(c01, cs1), _shift(c02, cs2),
-            ghs2.contiguous(), w_hh1, w2)
+            ghs2.contiguous(), w_hh1, w2, ctx.model)
         need = ctx.needs_input_grad
         dw_hh1 = (torch.einsum("tbh,tbg->hg", hs1_prev, dgates1)
                   if need[1] else None)

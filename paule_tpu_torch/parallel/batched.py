@@ -32,6 +32,7 @@ Adam step runs there, and the replicas take its weights.  Synthesis and
 the metrics run on the primary device (``Paule.device``).
 """
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -208,12 +209,15 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
     """The batched counterpart of ``Paule.plan_resynth`` for the
     same-length utterances ``target_mels (B, F, 60)``
     (``paule_tpu/parallel/batched.py:170-334``; module docstring).  The
-    phases' wall times go to ``paule_obj.last_planning_timings``; a traced
-    call (:mod:`paule_tpu_torch.tracing`) records the leaves of each phase:
+    phases' wall times go to ``paule_obj.last_planning_timings``, which
+    also holds ``continue_learning_tube``, the part of
+    ``continue_learning`` that trains the two tube models; a traced call
+    (:mod:`paule_tpu_torch.tracing`) records the leaves of each phase:
     ``prelude`` (``shards``), ``planning`` (``shards``, ``to_host``),
     ``synthesis`` (``run``), ``metrics`` (``prod``, ``log``),
-    ``continue_learning`` (``batch``, ``step``, ``sync_replicas``) and
-    ``final`` (``to_host``).
+    ``continue_learning`` (``batch``, ``step``, ``sync_replicas``, and
+    ``tube_batch``, ``tube_step`` for the tube models) and ``final``
+    (``to_host``).
 
     -> a dict: ``planned_cp`` (B, 2F, 30); ``prod_sigs`` and ``prod_mels``
     of the last outer iteration; ``prod_loss_curve`` (n_outer, B) and, as
@@ -229,6 +233,7 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
     (module docstring), or ``None``."""
     if tracing.ON:
         tracing.leaf("shards", phase="prelude")
+        paule_obj._name_models()
     if n_outer < 1:
         raise ValueError("n_outer must be >= 1")
     shards, target_mels, target_semvecs = _prepare_batch(
@@ -239,21 +244,22 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
     somato = paule_obj.use_somatosensory_feedback
     want_semvec = log_semantics or objective != "acoustic"
     timings = {"planning": 0.0, "synthesis": 0.0, "metrics": 0.0,
-               "continue_learning": 0.0}
+               "continue_learning": 0.0, "continue_learning_tube": 0.0}
     curves = {}
     losses = {"pred": [], "tube": [], "tube_mel": []}
     sub_losses = []
 
-    def train_shared(trainer, name, all_in, all_out, log):
+    def train_shared(trainer, name, all_in, all_out, log, leaf=""):
         """``n_epochs`` epochs over all B pairs, reshuffled each epoch and
         cut into batches of ``batch_size``, the last one smaller
         (``paule_tpu/parallel/batched.py:230-251``); the orders are drawn
         first, as JAX draws them, and copied to the device at once.  With a
         mesh, a batch that ``dp`` divides trains sharded over the shards'
         replicas of the model ``name``, which take the weights after every
-        step."""
+        step.  ``leaf`` prefixes the traced leaves ``batch`` and
+        ``step``."""
         if tracing.ON:
-            tracing.leaf("batch")
+            tracing.leaf(leaf + "batch")
         replicas = [getattr(s.models, name) for s in shards]
         orders = torch.as_tensor(
             [paule_obj._py_rng.sample(range(b), b) for _ in range(n_epochs)],
@@ -263,10 +269,10 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
         for order in orders:
             for start in range(0, b, batch_size):
                 if tracing.ON:
-                    tracing.leaf("batch")
+                    tracing.leaf(leaf + "batch")
                 idx = order[start:start + batch_size]
                 if tracing.ON:
-                    tracing.leaf("step")
+                    tracing.leaf(leaf + "step")
                 if mesh is not None and len(idx) % mesh.shape["dp"] == 0:
                     log.append(trainer.train_batch(
                         mesh_mod.shard_batch(mesh, all_in[idx]),
@@ -315,12 +321,16 @@ def plan_batch_resynth(paule_obj, target_mels, target_semvecs=None, *,
                 train_shared(paule_obj.pred_trainer, "pred_model", cps_dev,
                              pm_dev["prod_mel"], losses["pred"])
                 if continue_learning_tube and somato:
+                    t0 = time.perf_counter()
                     train_shared(paule_obj.tube_trainer, "cp_tube_model",
                                  cps_dev, pm_dev["prod_tube"],
-                                 losses["tube"])
+                                 losses["tube"], "tube_")
                     train_shared(paule_obj.tube_mel_trainer,
                                  "tube_mel_model", pm_dev["prod_tube"],
-                                 pm_dev["prod_mel"], losses["tube_mel"])
+                                 pm_dev["prod_mel"], losses["tube_mel"],
+                                 "tube_")
+                    timings["continue_learning_tube"] += (
+                        time.perf_counter() - t0)
     if tracing.ON:
         tracing.leaf("to_host", phase="final")
     paule_obj.last_planning_timings = timings

@@ -218,9 +218,17 @@ def reduce_grads(module, replicas):
 
 def sync_replicas(module, replicas):
     """Copy ``module``'s parameters and buffers into each replica that is
-    not ``module`` itself, each block of a split layer its columns.  A
-    traced call counts the call and the bytes copied."""
+    not ``module`` itself, each block of a split layer its columns; with
+    no such replica, nothing happens.  A traced call that copies counts
+    the call and the bytes copied, and times the copies as the device span
+    ``sync_replicas`` on the current stream of ``module``'s device, where
+    a copy to another card runs."""
     copies = [rep for rep in replicas if rep is not module]
+    if not copies:
+        return
+    if tracing.ON:
+        device = _device_of(module)
+        start = tracing.device_span_start(device)
     with torch.no_grad():
         for rep in copies:
             for p, q, cols in param_pairs(module, rep):
@@ -228,6 +236,7 @@ def sync_replicas(module, replicas):
             for name, buf in module.named_buffers():
                 rep.get_buffer(name).copy_(buf)
     if tracing.ON:
+        tracing.device_span_end("sync_replicas", start, device)
         tracing.count("sync_replicas")
         tracing.count("sync_replicas_bytes", sum(
             q.numel() * q.element_size() for rep in copies

@@ -9,7 +9,8 @@ another traced call.  While no traced call is open, the module-level
 boolean :data:`ON` is false, and every span, op and counter site of the
 port tests it and does nothing more: no clock read, no
 ``record_function``, no CUDA event.  Only the phases' wall times, which
-``last_planning_timings`` always keeps, are read then.
+``last_planning_timings`` always keeps (with the batched planner's
+``continue_learning_tube``), are read then.
 
 Spans.  A call holds phases (``planning``, ``synthesis``, ``metrics``,
 ``continue_learning``, and ``prelude`` and ``final`` for the code before
@@ -33,15 +34,27 @@ each call's family (``single``: B1/B2, ``pair``: B3/B4), direction
 (``fwd``/``bwd``), T, B and H, and on a CUDA tensor an event pair that
 the launch records right before and after the kernel; a call's record
 sums them by (family, direction, T, B, H) as
-a count and device milliseconds (``None`` on the CPU).  B2 and B4 run on
-the autograd engine's device thread, so the open call is process-wide.
+a count and device milliseconds (``None`` on the CPU), and split each
+sum by the model that launched the op (``models``): ``Paule`` names its
+models (``predictive``, ``inverse``, ``embedder``, ``cp_tube``,
+``tube_mel``, ``tube_embedder``) as a traced call starts, a model's LSTM
+stack runs under its name (:func:`set_model`), and a backward op takes
+the name its forward saw; an op of no named model counts as ``other``.
+B2 and B4 run on the autograd engine's device thread, so the open call
+is process-wide.
+
+Device spans.  A stretch of device work with no kernel of its own, such
+as the weight copies of ``parallel.mesh.sync_replicas``, is timed by an
+event pair on its card's current stream (:func:`device_span_start`,
+:func:`device_span_end`); a call's record sums them by name as a count
+and device milliseconds (``None`` on the CPU).
 
 Counters (per call): ``host_waits``, the points where the call's own
 thread blocks on the device (a device-to-host copy, a synchronous
 host-to-device copy, an event or device synchronize), and
 ``worker_waits``, the same on other threads (the synthesis thread);
 ``d2h_bytes`` and ``h2d_bytes``; ``adam_steps`` by model;
-``snapshots`` synthesised; ``sync_replicas`` calls and
+``snapshots`` synthesised; ``sync_replicas`` calls that copied and
 ``sync_replicas_bytes``.
 
 A call opened inside another adds its ops and counters to the outer
@@ -70,6 +83,12 @@ _ids = itertools.count(1)
 _lock = threading.Lock()
 #: free timing events, by CUDA device index
 _pool = collections.defaultdict(list)
+#: the model whose LSTM stack runs now, or ``None`` (:func:`set_model`);
+#: the models' forwards run on the call's thread, and a backward op takes
+#: the name its forward saw
+MODEL = None
+#: the ``models`` name of an op launched outside every named model
+OTHER = "other"
 
 COUNTERS = ("host_waits", "worker_waits", "d2h_bytes", "h2d_bytes",
             "snapshots", "sync_replicas", "sync_replicas_bytes")
@@ -85,8 +104,8 @@ def calls():
     """The finished call records, oldest first (at most 64): dicts of
     ``id``, ``parent`` (the enclosing call's id or ``None``), ``scope``,
     ``profiled``, ``device``, ``host_start_ns``, ``host_end_ns``,
-    ``device_start_ns``, ``device_end_ns``, ``spans``, ``ops`` and
-    ``counters`` (module docstring)."""
+    ``device_start_ns``, ``device_end_ns``, ``spans``, ``ops``,
+    ``device_spans`` and ``counters`` (module docstring)."""
     return list(_done)
 
 
@@ -128,12 +147,16 @@ class _Call:
         self.phase = self.leaf = None
         #: the marks' events, in order
         self.marks = []
-        #: (key, start event, end event, device index) per op; the
-        #: events and index ``None`` on the CPU
+        #: (key, start event, end event, device index, model) per op;
+        #: the events and index ``None`` on the CPU
         self.ops = []
-        #: {key: [count, device ms or None]} of the calls closed inside
-        #: this one
+        #: (name, start event, end event, device index) per device span
+        self.timed = []
+        #: {(key, model): [count, device ms or None]} of the ops, and
+        #: {name: [count, device ms or None]} of the device spans, of the
+        #: calls closed inside this one
         self.merged = collections.defaultdict(lambda: [0, None])
+        self.merged_spans = collections.defaultdict(lambda: [0, None])
         self.counters = collections.Counter()
         self.adam = collections.Counter()
         self.record = None
@@ -178,8 +201,8 @@ class _Call:
         behind it, so they have completed) and make :attr:`record`."""
         stop = self.mark()
         self.end_phase(stop)
-        last = {index: e1 for _key, _e0, e1, index in self.ops
-                if e1 is not None}
+        last = {index: e1 for _key, _e0, e1, index, *_ in self.ops
+                + self.timed if e1 is not None}
         if stop[1] is not None:
             last[self.device.index] = stop[1]
         for ev in last.values():
@@ -198,12 +221,21 @@ class _Call:
                   "device_end_ns": device_ns.get(id(s.e1))}
                  for s in self.spans]
         agg = collections.defaultdict(lambda: [0, None])
-        for key, e0, e1, index in self.ops:
-            _add(agg[key], 1, None if e0 is None else e0.elapsed_time(e1))
-            if e0 is not None:
-                _pool[index].extend((e0, e1))
+        for key, e0, e1, index, model in self.ops:
+            _add(agg[key, model], 1, _elapsed(e0, e1, index))
         for key, (n, ms) in self.merged.items():
             _add(agg[key], n, ms)
+        timed = collections.defaultdict(lambda: [0, None])
+        for name, e0, e1, index in self.timed:
+            _add(timed[name], 1, _elapsed(e0, e1, index))
+        for name, (n, ms) in self.merged_spans.items():
+            _add(timed[name], n, ms)
+        shapes = collections.defaultdict(lambda: [0, None, {}])
+        for (key, model), (n, ms) in sorted(
+                agg.items(), key=lambda kv: (kv[0][0], kv[0][1] or "")):
+            entry = shapes[key]
+            _add(entry, n, ms)
+            entry[2][model or OTHER] = {"count": n, "device_ms": ms}
         counters = {k: self.counters[k] for k in COUNTERS}
         counters["adam_steps"] = dict(self.adam)
         self.record = {
@@ -216,15 +248,28 @@ class _Call:
             "device_end_ns": device_ns.get(id(stop[1])),
             "spans": spans,
             "ops": [{"family": f, "direction": d, "T": t, "B": b, "H": h,
-                     "count": n, "device_ms": ms}
-                    for (f, d, t, b, h), (n, ms) in sorted(agg.items())],
+                     "count": n, "device_ms": ms, "models": models}
+                    for (f, d, t, b, h), (n, ms, models) in shapes.items()],
+            "device_spans": {name: {"count": n, "device_ms": ms}
+                             for name, (n, ms) in sorted(timed.items())},
             "counters": counters}
         if self.parent is not None:
             for key, (n, ms) in agg.items():
                 _add(self.parent.merged[key], n, ms)
+            for name, (n, ms) in timed.items():
+                _add(self.parent.merged_spans[name], n, ms)
             with _lock:
                 self.parent.counters.update(self.counters)
                 self.parent.adam.update(self.adam)
+
+
+def _elapsed(e0, e1, index):
+    """The milliseconds between two completed events, which go back to the
+    pool; ``None`` without events (the CPU)."""
+    if e0 is None:
+        return None
+    _pool[index].extend((e0, e1))
+    return e0.elapsed_time(e1)
 
 
 def _add(entry, n, ms):
@@ -333,14 +378,50 @@ def op_events(device):
     return _event(device.index), _event(device.index)
 
 
-def op(family, direction, seq, batch, hidden, events=None, device=None):
+def set_model(name):
+    """Call only while :data:`ON`.  The LSTM forwards launched from now on
+    are model ``name``'s (``None``: no named model's).  -> the name it
+    replaces, to put back when the model's stack is done."""
+    global MODEL
+    before, MODEL = MODEL, name
+    return before
+
+
+def op(family, direction, seq, batch, hidden, events=None, device=None,
+       model=None):
     """Call only while :data:`ON`, after the launch: one LSTM op of the
-    innermost open call, timed by ``events`` (of :func:`op_events`) on
-    CUDA ``device``; without them an op that ran on the CPU."""
+    innermost open call launched by ``model`` (a name or ``None``), timed
+    by ``events`` (of :func:`op_events`) on CUDA ``device``; without them
+    an op that ran on the CPU."""
     if _stack:
         _stack[-1].ops.append(((family, direction, seq, batch, hidden),
                                *(events or (None, None)),
-                               None if events is None else device.index))
+                               None if events is None else device.index,
+                               model))
+
+
+def device_span_start(device):
+    """Call only while :data:`ON`: the start of a device span on the
+    current stream of ``device``, an event recorded there now, or ``None``
+    off CUDA (:func:`device_span_end`)."""
+    if device.type != "cuda":
+        return None
+    ev = _event(device.index)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def device_span_end(name, start, device):
+    """Call only while :data:`ON`: end the device span ``name`` begun at
+    ``start`` (of :func:`device_span_start`) on ``device``'s current
+    stream, and add it to the innermost open call."""
+    end = None
+    if start is not None:
+        end = _event(device.index)
+        end.record(torch.cuda.current_stream(device))
+    if _stack:
+        _stack[-1].timed.append((name, start, end, None if start is None
+                                 else device.index))
 
 
 def count(name, n=1):

@@ -215,7 +215,8 @@ def test_plan_batch_resynth_matches_jax(target_mels, case):
                                    rtol=0, atol=CP_ATOL)
         assert len(out["tube_model_loss"]) == n_steps
     assert set(port.last_planning_timings) == {
-        "planning", "synthesis", "metrics", "continue_learning"}
+        "planning", "synthesis", "metrics", "continue_learning",
+        "continue_learning_tube"}
 
 
 def test_a_mesh_raises(target_mels):

@@ -226,9 +226,9 @@ def test_split_layer_runs_one_recurrence_per_call(monkeypatch):
         calls["fwd"].append(tuple(w_hh.shape))
         return real_fwd(gates_x, w_hh, h0, c0)
 
-    def bwd(acts, cs_prev, ghs, w_hh):
+    def bwd(acts, cs_prev, ghs, w_hh, model=None):
         calls["bwd"].append(tuple(w_hh.shape))
-        return real_bwd(acts, cs_prev, ghs, w_hh)
+        return real_bwd(acts, cs_prev, ghs, w_hh, model)
 
     monkeypatch.setattr(LS, "lstm_fwd", fwd)
     monkeypatch.setattr(LK, "lstm_bwd", bwd)

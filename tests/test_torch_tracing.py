@@ -49,7 +49,8 @@ LEAVES = {
     "plan_batch_resynth": {
         "prelude": {"shards"}, "planning": {"shards", "to_host"},
         "synthesis": {"run"}, "metrics": {"prod", "log"},
-        "continue_learning": {"batch", "step", "sync_replicas"},
+        "continue_learning": {"batch", "step", "tube_batch", "tube_step",
+                              "sync_replicas"},
         "final": {"to_host"}}}
 NAME = re.compile(
     r"^(plan_resynth|plan_batch_resynth)\.([a-z_]+)\.([a-z_]+)$")
@@ -196,7 +197,8 @@ def test_last_planning_timings_keeps_its_keys(paule, target, on):
             "total"}
         _plan(paule, target, "plan_batch_resynth")
         assert set(paule.last_planning_timings) == {
-            "planning", "synthesis", "metrics", "continue_learning"}
+            "planning", "synthesis", "metrics", "continue_learning",
+            "continue_learning_tube"}
     finally:
         tracing.enable(False)
 
