@@ -11,7 +11,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    steps), and times the
    kernel, the plain version and ``torch.nn.LSTM`` (cuDNN, a yardstick the
    port never calls), with µs per time step; holds the four persistent
-   kernels also at edge shapes (T=1, a batch of 13 rows, H=100), checks
+   kernels also at edge shapes (T=1, a batch of 13 rows, H=100), B2 at
+   the shapes of its tiled layout (B=8 and 16, H=720 and 360) and of its
+   owner layout (B=1-4) with the layout each launch took and µs per step
+   (``paule_tpu_torch.tools.bwd_layouts``), checks
    that two calls give bit-identical outputs, and counts with
    ``torch.profiler`` that one call of each, and of each ceiling probe at
    both of step 3's shapes, runs exactly one device kernel;
@@ -184,6 +187,7 @@ from paule_tpu_torch.tools import (batch_scaling, bench_serve,
                                    profile_device, release_quality_run,
                                    roofline, step_decomposition,
                                    synthesis_breakdown)
+from paule_tpu_torch.tools import bwd_layouts as BL
 from paule_tpu_torch.tools import kernel_ceiling_probes as P
 from paule_tpu_torch.tools import timing
 from paule_tpu_torch.tools import train_release_weights as R
@@ -428,6 +432,19 @@ def check_edges(dev, gen):
               f"{GRAD_RTOL}); two calls bit-identical: {same}")
         ok = (ok and same and max(errs["B1"], errs["B3"]) <= FWD_ATOL
               and max(errs["B2"], errs["B4"]) <= GRAD_RTOL)
+    return ok
+
+
+def check_bwd_layouts(dev):
+    """B2 at :data:`~paule_tpu_torch.tools.bwd_layouts.SMOKE_SHAPES`
+    (``bwd_layouts.measure``): against its plain version (relative error
+    under ``bwd_layouts.REL_TOL``) and a second launch (bit for bit), with
+    the layout the wrapper took and µs per step.  -> ok."""
+    ok = True
+    for shape in BL.SMOKE_SHAPES:
+        row = BL.measure(*shape, dev)
+        print("  " + BL.line(row))
+        ok = ok and BL.row_ok(row)
     return ok
 
 
@@ -2716,10 +2733,11 @@ def main():
                                                         hidden)
         ok_train = ok_train and ok_t
     ok_edges = check_edges(dev, gen)
+    ok_layouts = check_bwd_layouts(dev)
     ok_one = check_one_kernel_per_call(dev, gen)
     ok = (ok_c and ok_c8 and ok_c4 and ok_s1 and ok_s4 and ok_s24 and ok_s8
           and ok_ci8 and ok_ci1 and ok_tube and ok_t1 and ok_t24 and ok_train
-          and ok_edges and ok_one)
+          and ok_edges and ok_layouts and ok_one)
     results = {**core, **stack}
     for name in core:
         merge_errors(name, results, core8, core4, core_inv8, core_inv1,

@@ -13,11 +13,13 @@
 // The TPU kernels keep W_hh resident in one core's VMEM and loop over time
 // inside one program; a Hopper block has at most 227 KB of shared memory, so
 // here the hidden units are tiled across blocks.  In every kernel a block
-// owns a few hidden units, one warp per unit, and computes all four gate
-// columns (i, f, g, o) of its units, so the gate math stays in the warp that
-// produced the pre-activations.  Sums run in a fixed order (strided per-lane
-// partial sums, then an xor butterfly or its reduce-scatter form, whose
-// partners add the same two values), with no atomics, so runs are
+// owns a few hidden units and computes all four gate columns (i, f, g, o)
+// of its units; B1, B3, B4 and B2 below B=8 give each unit a warp, so the
+// gate math stays in the warp that produced the pre-activations (B2 from
+// B=8 on splits the reduction axis across warps instead, below).  Sums run in a
+// fixed order (strided per-lane partial sums, then an xor butterfly or its
+// reduce-scatter form, whose partners add the same two values, and across
+// warps in warp order through shared memory), with no atomics, so runs are
 // bit-reproducible.
 //
 // All four kernels are persistent: one cooperative launch per call, with
@@ -66,29 +68,57 @@
 //   co-resident and returns cudaErrorCooperativeLaunchTooLarge if not,
 //   before anything is launched.
 //
-// Backward (B2, B4): the reverse recurrence, t = T-1 down to 0.  A warp owns
-// hidden unit u; its recurrent cotangent is one dot product per batch row
-// against row u of the weights in their (H, 4H) layout, which is contiguous,
-// so no transposed scratch is needed: dh[b] = extra[b] + W[u, :] .
-// dgates_{t+1}[b, :].  One device routine (bwd_rows, the counterpart of
-// cell_rows) runs it over the staged dgates rows: a lane takes its own float4
-// of each 128-column tile of the weight row and of R batch rows, with no
-// branch between rows; warp_sums adds the lanes' sums in a fixed order; the
-// lane of row b then runs the gate-gradient step (cell_bwd) and writes
-// dgates[b, qH + u], q < 4.  Each unit's cell-gradient carry stays in shared
-// memory for the whole sequence, the step's own inputs (acts, cs_prev, ghs)
-// are prefetched across the barrier, and dgates_{t+1}, which other blocks
-// wrote, is staged through L2.  This is the owner layout: it stages a whole
-// dgates row (4H floats) per batch row after each barrier.  It was taken
-// over P2's wide layout (csrc/ceiling_probes.cu), which exchanges only dh
-// (H floats) but makes every block recompute every unit's gate gradients
-// from all of acts, because it needs no recomputation and at B=1 runs at
-// B1's ~3 us per step on an H100; at B=8 its staging (92 KB per block and
-// step) is what bounds it, and what the wide layout would cut.
-// * B2 holds its units' W_hh rows in shared memory for the whole sequence
-//   (6 units x 2880 x 4 B = 69 KB per block at H=720 on 132 SMs).  After
-//   step 0, one more barrier, then dh0 = dgates_0 . W_hh^T in the same
-//   launch; dc0 is the carry.
+// Backward (B2, B4): the reverse recurrence, t = T-1 down to 0.  Hidden unit
+// u's recurrent cotangent is one dot product per batch row against row u of
+// the weights in their (H, 4H) layout, which is contiguous, so no transposed
+// scratch is needed: dh[b] = extra[b] + W[u, :] . dgates_{t+1}[b, :]; then
+// the gate-gradient step (cell_bwd) writes dgates[b, qH + u], q < 4, and
+// the cell-gradient carry goes on to the step before.  The step's own
+// inputs (acts, cs_prev, ghs) are prefetched across the barrier, and
+// dgates_{t+1}, which other blocks wrote, is staged through L2.  This is the
+// owner layout: a block owns units, so it stages every column of every
+// dgates row (4H floats a row) after each barrier.  It was taken over P2's
+// wide layout (csrc/ceiling_probes.cu), which exchanges only dh (H floats)
+// but makes every block recompute every unit's gate gradients from all of
+// acts, because it needs no recomputation and at B=1 runs at B1's ~3 us per
+// step on an H100.  Both B2 layouts hold the block's W_hh rows in shared
+// memory for the whole sequence (6 units x 2880 x 4 B = 69 KB per block at
+// H=720 on 132 SMs) and, after step 0, one more barrier, then compute dh0 =
+// dgates_0 . W_hh^T in the same launch; dc0 is the carry.
+// * B2 below B=8 and B4, a warp per unit: one device routine (bwd_rows, the
+//   counterpart of cell_rows) runs the dot over the staged dgates rows: a
+//   lane takes its own float4 of each 128-column tile of the weight row and
+//   of R batch rows, with no branch between rows; warp_sums adds the lanes'
+//   sums in a fixed order; the lane of row b then runs cell_bwd.  Each
+//   unit's carry stays in shared memory.  B2 at B=1 is bound by its barrier
+//   and latency (~3 us a step on an H100), not by its rows; at B=2 and B=4
+//   this layout measured 0.3-0.6 us a step faster than the tiled one
+//   (H=720), at B=8 0.6 us slower, so it runs B2 below B=8.
+// * B2 from B=8 on, the tiled layout (lstm_bwd_persistent_tiled).  With a
+//   warp per unit each of a block's warps read every staged row again from
+//   shared memory: 6 x 184 KB per SM and step at (B=16, H=720), ~4.5-5 us
+//   at 128 B a clock, against ~1.2 us of FMAs; and the rows that did not fit
+//   beside the weights (8 of 16 there) took a second staged chunk, with its
+//   own barrier and L2 round trip, every step (13.98 us a step, 7% of the
+//   FMA bound).  So the block's warps split the 4H reduction axis instead:
+//   in each row group of R = 8 rows (two groups at most), warp `slice` of
+//   8 takes 128 columns of each ring slot, and each lane multiplies its
+//   float4 of each of the R staged rows into all of the block's units (up
+//   to 6 a pass: 6R accumulators a lane), so each staged value is read
+//   from shared memory once per block.  The pass's rows (all B up to 16)
+//   stream through a ring of 1024-column slots by cp.async, so one pass
+//   takes every row; as many slots as fit are issued at once (all of a
+//   step's at B=8, H=720), each later one as soon as the slot it reuses is
+//   read.  The warps' sums are folded (fold_stage: reduce-scatter, then
+//   butterflies) and added through shared memory in slice order; then one
+//   thread per (unit, row) runs cell_bwd, its carry kept in dc0.  Measured
+//   on an H100: 9.6 us a step at (16, 720), 10% of the FMA bound; issuing
+//   every slot at once or one ring stage more moved nothing.  A clock read
+//   between the phases of a step puts about half of it in waiting for the
+//   first slot to land and ~1.1 us in the grid barrier: what is left is
+//   the staging from L2 itself (every block reads all of dgates_{t+1}:
+//   22 MB a step over 120 blocks at (16, 720)), which a cluster of blocks
+//   sharing each slot would divide.
 // * B4 runs B3's wavefront backwards, T + 1 steps between T barriers:
 //   blocks [0, nb) run layer 2 at t = T-1-s, blocks [nb, 2nb) layer 1 at
 //   t = T-s.  Layer 2's dot is w2[H+u, :] . dgates2_{t+1}, layer 1's one dot
@@ -208,7 +238,7 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Wait until at most `pending` (0 .. kMaxStages - 2) of this thread's
+// Wait until at most `pending` (0 .. kMaxStages - 1) of this thread's
 // copy groups are in flight.
 __device__ __forceinline__ void cp_async_wait(int pending) {
   switch (pending) {
@@ -218,7 +248,8 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
     case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
     case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
 }
 
@@ -552,23 +583,30 @@ lstm_stack2_fwd_persistent(int T, int B, int H, int units, int chunk,
 // ------------------------------------------------ backward: shared routine
 constexpr int kIn = 6;   // floats per batch row in a warp's prefetch slot
 
-// Lane r < rows copies row r's inputs of one backward step of unit u into
-// slot[kIn r + j], asynchronously (issued before a grid barrier, the copy
-// overlaps it): j < 4 the activated gates acts[r, qH + u], 4 the previous
-// cell state, 5 the incoming hidden cotangent ghs[r, u] (where ghs is given).
+// Row b's inputs of one backward step of unit u into s[j], asynchronously
+// (issued before a grid barrier, the copy overlaps it): j < 4 the activated
+// gates acts[b, qH + u], 4 the previous cell state, 5 the incoming hidden
+// cotangent ghs[b, u] (where ghs is given).
+__device__ __forceinline__ void prefetch_input(float* s, const float* acts,
+                                               const float* c_prev,
+                                               const float* ghs, int H, int u,
+                                               int b) {
+  const size_t G = (size_t)4 * H;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    cp_async4(s + q, acts + b * G + (size_t)q * H + u);
+  cp_async4(s + 4, c_prev + (size_t)b * H + u);
+  if (ghs) cp_async4(s + 5, ghs + (size_t)b * H + u);
+}
+
+// Lane r < rows copies row r's inputs of unit u into slot[kIn r + j]
+// (prefetch_input).
 __device__ __forceinline__ void prefetch_inputs(float* slot, const float* acts,
                                                 const float* c_prev,
                                                 const float* ghs, int H,
                                                 int u, int rows, int lane) {
-  if (lane < rows) {
-    const size_t G = (size_t)4 * H;
-    float* s = slot + kIn * lane;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      cp_async4(s + q, acts + lane * G + (size_t)q * H + u);
-    cp_async4(s + 4, c_prev + (size_t)lane * H + u);
-    if (ghs) cp_async4(s + 5, ghs + (size_t)lane * H + u);
-  }
+  if (lane < rows)
+    prefetch_input(slot + kIn * lane, acts, c_prev, ghs, H, u, lane);
 }
 
 // The gate-gradient step of one unit and one batch row, shared by both
@@ -824,6 +862,279 @@ lstm_bwd_persistent(int T, int B, int H, int units, int chunk,
   }
 }
 
+// ------------------------------------------------------- B2, tiled layout
+constexpr int kSlices = 8;               // warps splitting the reduction axis
+constexpr int kSlot = kSlices * kTile;   // columns of dgates per ring slot
+constexpr int kTiledUnits = 6;           // units a pass sums in registers
+constexpr int kTiledRows = 8;            // rows of a row group (R)
+constexpr int kRowGroups = 2;            // most row groups (warp sets) a block
+constexpr int kTiledThreads = kRowGroups * kSlices * kWarp;
+
+__device__ __forceinline__ float dot4(float a, float4 w, float4 x) {
+  a += w.x * x.x;
+  a += w.y * x.y;
+  a += w.z * x.z;
+  a += w.w * x.w;
+  return a;
+}
+
+// Warp sums of the N per-lane values v, folded: while the count still held
+// is even, a reduce-scatter stage at xor distance OFF (scatter_stage: the
+// lanes with bit OFF set keep the upper half), then butterflies.  Afterwards
+// v[0 : fold_held(N)) of lane L hold the sums of values fold_base(N, L) + i,
+// and lanes that differ only in the bits of fold_dups(N) hold the same sums.
+template <int N, int HELD, int OFF>
+__device__ __forceinline__ void fold_stage(float (&v)[N], int lane) {
+  if constexpr (HELD % 2 == 0) {
+    constexpr int half = HELD / 2;
+    const bool upper = lane & OFF;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = upper ? v[i] : v[i + half];
+      const float keep = upper ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, OFF);
+    }
+    if constexpr (OFF > 1) fold_stage<N, half, OFF / 2>(v, lane);
+  } else {
+#pragma unroll
+    for (int i = 0; i < HELD; ++i) v[i] += __shfl_xor_sync(kFull, v[i], OFF);
+    if constexpr (OFF > 1) fold_stage<N, HELD, OFF / 2>(v, lane);
+  }
+}
+
+__host__ __device__ constexpr int fold_held(int n, int off = kWarp / 2) {
+  return off == 0 || n % 2 ? n : fold_held(n / 2, off / 2);
+}
+
+__host__ __device__ constexpr int fold_dups(int n, int off = kWarp / 2) {
+  return off == 0 ? 0 : n % 2 ? 2 * off - 1 : fold_dups(n / 2, off / 2);
+}
+
+__device__ __forceinline__ int fold_base(int n, int lane) {
+  int base = 0;
+  for (int off = kWarp / 2; off > 0 && n % 2 == 0; off >>= 1) {
+    n /= 2;
+    if (lane & off) base += n;
+  }
+  return base;
+}
+
+// Ring slot s of a pass: columns [s kSlot, min(G, (s + 1) kSlot)) of the n
+// rows at src (row stride G, other blocks wrote them during the launch) into
+// slot s % stages (alloc rows of kSlot floats), by the whole block as 16-byte
+// cp.async.cg copies through L2, then one commit.
+__device__ __forceinline__ void slot_issue(float* ring, int stages, int alloc,
+                                           int s, const float* src, int G,
+                                           int n) {
+  const int c0 = s * kSlot;
+  const int per_row = min(kSlot, G - c0) / 4;
+  float* dst = ring + (size_t)(s % stages) * alloc * kSlot;
+  for (int i = threadIdx.x; i < n * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = i - r * per_row;
+    cp_async16(dst + (size_t)r * kSlot + 4 * c,
+               src + (size_t)r * G + c0 + 4 * c);
+  }
+  cp_async_commit();
+}
+
+// Per-lane partial sums of one pass, by every warp of the block:
+// acc[j R + r] += w_s[j G + k] x[r, k] for the nu (<= kTiledUnits) weight
+// rows w_s and the R rows of the warp's row group rg, over the G columns of
+// the n rows at src, which stream through the ring slot by slot: the first
+// `stages` slots are issued at once (every slot of the step where they all
+// fit, one L2 round trip), and each later one as soon as the slot it reuses
+// is read.  In each slot, warp `slice` of the row group takes the 128
+// columns at slice * 128 and lane L their float4 at 4L, so each staged value
+// is read from shared memory once per block.  Rows of the group past n read
+// finite stale values (their sums are dropped).  Every __syncthreads is
+// reached by all threads.
+__device__ __forceinline__ void tiled_product(
+    float (&acc)[kTiledUnits * kTiledRows], const float* w_s, int nu, int G,
+    const float* src, int n, float* ring, int stages, int alloc, int rg,
+    int slice, int lane) {
+  constexpr int R = kTiledRows;
+  const int n_slots = (G + kSlot - 1) / kSlot;
+  const int col = slice * kTile + 4 * lane;       // within a slot
+  for (int s = 0; s < min(stages, n_slots); ++s)
+    slot_issue(ring, stages, alloc, s, src, G, n);
+  for (int s = 0; s < n_slots; ++s) {
+    // the slots issued after s may stay in flight
+    cp_async_wait(min(n_slots - s - 1, stages - 1));
+    __syncthreads();                     // slot s landed for every thread
+    const int k = s * kSlot + col;
+    if (k < G) {
+      const float* x = ring + ((size_t)(s % stages) * alloc + rg * R) * kSlot
+                       + col;
+      float4 xv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        xv[r] = *reinterpret_cast<const float4*>(x + (size_t)r * kSlot);
+#pragma unroll
+      for (int j = 0; j < kTiledUnits; ++j) {
+        if (j < nu) {
+          const float4 wv =
+              *reinterpret_cast<const float4*>(w_s + (size_t)j * G + k);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            acc[j * R + r] = dot4(acc[j * R + r], wv, xv[r]);
+        }
+      }
+    }
+    if (s + stages < n_slots) {
+      __syncthreads();                   // slot s read: refill it
+      slot_issue(ring, stages, alloc, s + stages, src, G, n);
+    }
+  }
+}
+
+// The warp's sums of acc (fold_stage) into red_s[(slice alloc + rg R + r)
+// kTiledUnits + j], one lane of each set holding the same sums writing.
+__device__ __forceinline__ void tiled_reduce(
+    float (&acc)[kTiledUnits * kTiledRows], float* red_s, int alloc, int rg,
+    int slice, int lane) {
+  constexpr int R = kTiledRows, N = kTiledUnits * R;
+  constexpr int held = fold_held(N), dups = fold_dups(N);
+  fold_stage<N, N, kWarp / 2>(acc, lane);
+  if ((lane & dups) == 0) {
+    const int base = fold_base(N, lane);
+#pragma unroll
+    for (int i = 0; i < held; ++i) {
+      const int j = (base + i) / R, r = (base + i) % R;
+      red_s[((size_t)slice * alloc + rg * R + r) * kTiledUnits + j] = acc[i];
+    }
+  }
+}
+
+// The sum over the slices' partial sums of (row b, unit j) of a pass, in
+// slice order.
+__device__ __forceinline__ float slices_sum(const float* red_s, int alloc,
+                                            int b, int j) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kSlices; ++i)
+    s += red_s[((size_t)i * alloc + b) * kTiledUnits + j];
+  return s;
+}
+
+// Steps t = T-1 .. 0, then dh0, as lstm_bwd_persistent, with the block's
+// warps splitting the reduction axis instead of owning a unit each.  Block
+// blk owns units u0 = blk * units ..; a pass takes up to kTiledUnits of them
+// (from j0) and up to `chunk` rows (from b0), all rows of the batch in one
+// pass where B <= chunk.  Warp w is slice w % kSlices of row group w /
+// kSlices (R rows each; alloc = R x the row groups); thread i < nu * n of a
+// pass then runs the cell step of row b0 + i / nu, unit u0 + j0 + i % nu.
+// The cell-gradient carry of (b, u) lives in dc0[b, u], read and written by
+// that thread only, and ends there at t = 0.  Dynamic shared memory: w_s
+// (units x 4H: the block's W_hh rows), the ring (stages x alloc x kSlot:
+// dgates_{t+1} column slots), red_s (kSlices x alloc x kTiledUnits: the
+// slices' sums), p_s (kTiledUnits x alloc x kIn: the next step's inputs of
+// the first pass, prefetched).
+__global__ void __launch_bounds__(kTiledThreads, 1)
+lstm_bwd_persistent_tiled(int T, int B, int H, int units, int chunk,
+                          int stages, const float* __restrict__ acts,
+                          const float* __restrict__ cs_prev,
+                          const float* __restrict__ ghs,
+                          const float* __restrict__ w_hh, float* dgates,
+                          float* __restrict__ dh0, float* dc0) {
+  extern __shared__ float4 smem4[];
+  constexpr int R = kTiledRows;
+  const int G = 4 * H;
+  const int alloc = blockDim.x / (kSlices * kWarp) * R;
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* ring = w_s + (size_t)units * G;
+  float* red_s = ring + (size_t)stages * alloc * kSlot;
+  float* p_s = red_s + (size_t)kSlices * alloc * kTiledUnits;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int rg = warp / kSlices, slice = warp % kSlices;
+  const int u0 = blockIdx.x * units;
+  const int own = min(units, H - u0);    // units this block owns
+  const size_t BH = (size_t)B * H, BG = (size_t)B * G;
+  load_rows(w_s, w_hh, G, u0, units, H);
+  for (size_t i = tid; i < (size_t)stages * alloc * kSlot; i += blockDim.x)
+    ring[i] = 0.0f;
+  // the first pass's units and rows, whose inputs are prefetched
+  const int nu0 = min(kTiledUnits, own), n0 = min(chunk, B);
+  if (tid < nu0 * n0)
+    prefetch_input(p_s + kIn * tid, acts + (T - 1) * BG,
+                   cs_prev + (T - 1) * BH, ghs + (T - 1) * BH, H,
+                   u0 + tid % nu0, tid / nu0);
+  cp_async_commit();
+  cg::grid_group grid = cg::this_grid();
+  for (int t = T - 1; t >= 0; --t) {
+    const bool rec = t + 1 < T;          // a cotangent from step t + 1
+    for (int b0 = 0; b0 < B; b0 += chunk) {
+      const int n = min(chunk, B - b0);
+      for (int j0 = 0; j0 < own; j0 += kTiledUnits) {
+        const int nu = min(kTiledUnits, own - j0);
+        const bool first = b0 == 0 && j0 == 0;
+        const bool cell = tid < nu * n;
+        const int b = b0 + tid / nu, u = u0 + j0 + tid % nu;
+        // this thread's inputs and carry, loaded before the product so that
+        // their latency overlaps it (the first pass's are in p_s)
+        float in[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        float dc_in = 0.0f;
+        if (cell) {
+          if (!first) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              in[q] = acts[t * BG + (size_t)b * G + (size_t)q * H + u];
+            in[4] = cs_prev[t * BH + (size_t)b * H + u];
+            in[5] = ghs[t * BH + (size_t)b * H + u];
+          }
+          if (rec) dc_in = dc0[(size_t)b * H + u];
+        }
+        if (rec) {
+          float acc[kTiledUnits * R];
+#pragma unroll
+          for (int i = 0; i < kTiledUnits * R; ++i) acc[i] = 0.0f;
+          tiled_product(acc, w_s + (size_t)j0 * G, nu, G,
+                        dgates + (t + 1) * BG + (size_t)b0 * G, n, ring,
+                        stages, alloc, rg, slice, lane);
+          tiled_reduce(acc, red_s, alloc, rg, slice, lane);
+        }
+        cp_async_wait_all();
+        __syncthreads();                 // red_s written, the ring read
+        if (cell) {
+          if (first) {
+#pragma unroll
+            for (int i = 0; i < 6; ++i) in[i] = p_s[kIn * tid + i];
+          }
+          const float dh =
+              in[5] + (rec ? slices_sum(red_s, alloc, b - b0, tid % nu) : 0.0f);
+          dc0[(size_t)b * H + u] =
+              cell_bwd(in, dh, dc_in, dgates + t * BG + (size_t)b * G + u, H);
+        }
+      }
+    }
+    if (t > 0) {
+      if (tid < nu0 * n0)
+        prefetch_input(p_s + kIn * tid, acts + (t - 1) * BG,
+                       cs_prev + (t - 1) * BH, ghs + (t - 1) * BH, H,
+                       u0 + tid % nu0, tid / nu0);
+      cp_async_commit();
+    }
+    grid.sync();                         // after step 0: dgates_0 complete
+  }
+  // dh0 = dgates_0 . W_hh^T
+  for (int b0 = 0; b0 < B; b0 += chunk) {
+    const int n = min(chunk, B - b0);
+    for (int j0 = 0; j0 < own; j0 += kTiledUnits) {
+      const int nu = min(kTiledUnits, own - j0);
+      float acc[kTiledUnits * R];
+#pragma unroll
+      for (int i = 0; i < kTiledUnits * R; ++i) acc[i] = 0.0f;
+      tiled_product(acc, w_s + (size_t)j0 * G, nu, G, dgates + (size_t)b0 * G,
+                    n, ring, stages, alloc, rg, slice, lane);
+      tiled_reduce(acc, red_s, alloc, rg, slice, lane);
+      cp_async_wait_all();
+      __syncthreads();
+      if (tid < nu * n)
+        dh0[(size_t)(b0 + tid / nu) * H + u0 + j0 + tid % nu] =
+            slices_sum(red_s, alloc, tid / nu, tid % nu);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- B4
 // Wavefront step s = 0..T: blocks [0, nb) run layer 2 at t = T-1-s, blocks
 // [nb, 2nb) layer 1 at t = T-s, whose layer-2 cotangent dgates2_t the other
@@ -909,12 +1220,11 @@ lstm_stack2_bwd_persistent(int T, int B, int H, int units, int chunk,
   }
 }
 
-// A cooperative launch of `kernel` on `blocks` blocks of units warps, or
-// the reason it cannot run: every block must be co-resident.
+// A cooperative launch of `kernel` on `blocks` blocks of `threads`
+// threads, or the reason it cannot run: every block must be co-resident.
 template <typename Kernel>
-int launch_cooperative(Kernel kernel, int blocks, int units, int smem,
+int launch_cooperative(Kernel kernel, int blocks, int threads, int smem,
                        void** args, void* stream) {
-  const int threads = units * kWarp;
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -937,7 +1247,8 @@ int launch_cooperative(Kernel kernel, int blocks, int units, int smem,
 
 // The plan's own consistency: units per block and rows per pass the kernels
 // are built for, and every unit of a layer owned by one of its nb blocks;
-// `stages` 0 for a kernel without a weight ring (B1, B2), else in range.
+// `stages` 0 for a kernel without a weight ring (B1, B2's owner layout),
+// else in range.
 bool plan_ok(int T, int B, int H, int nb, int units, int rows, int chunk,
              int stages, bool ring) {
   const bool rows_ok =
@@ -949,17 +1260,24 @@ bool plan_ok(int T, int B, int H, int nb, int units, int rows, int chunk,
          (long long)(nb - 1) * units < H;
 }
 
-// f(std::integral_constant<int, R>()) for the rows per pass R of the plan
-// (one of those plan_ok accepts).
-template <typename F>
+// The tiled B2's plan: kTiledRows rows per row group, at most kRowGroups
+// groups (chunk rows a pass) and 1 to kMaxStages ring slots.
+bool tiled_plan_ok(int T, int B, int H, int nb, int units, int rows,
+                   int chunk, int stages) {
+  return plan_ok(T, B, H, nb, units, rows, chunk, 0, false) &&
+         rows == kTiledRows && chunk <= kRowGroups * rows && stages >= 1 &&
+         stages <= kMaxStages;
+}
+
+// f(std::integral_constant<int, R>()) for the rows per pass R of the plan,
+// one of Rs (those the kernel at hand is built for), else
+// cudaErrorInvalidValue.
+template <int... Rs, typename F>
 int by_rows(int rows, F f) {
-  switch (rows) {
-    case 1: return f(std::integral_constant<int, 1>());
-    case 4: return f(std::integral_constant<int, 4>());
-    case 8: return f(std::integral_constant<int, 8>());
-    case 16: return f(std::integral_constant<int, 16>());
-    default: return f(std::integral_constant<int, 24>());
-  }
+  int err = cudaErrorInvalidValue;
+  (void)((rows == Rs && (err = f(std::integral_constant<int, Rs>()), true)) ||
+         ...);
+  return err;
 }
 
 }  // namespace
@@ -967,9 +1285,10 @@ int by_rows(int rows, F f) {
 // Every entry point takes its launch plan from ops/lstm_kernels.py
 // (fwd_plan, stack2_plan, bwd_plan, stack2_bwd_plan): one cooperative
 // launch of `blocks` blocks of `units` hidden units (B3, B4: half the blocks
-// per layer), `rows` batch rows per pass, `chunk` rows staged at a time,
-// `stages` tiles in each warp's weight ring (B3, B4; 0 for B1, B2) and `smem`
-// dynamic shared bytes.
+// per layer), `rows` batch rows per pass (the tiled B2: per row group),
+// `chunk` rows staged at a time, `stages` tiles in each warp's weight ring
+// (B3, B4; the tiled B2: slots of its ring; 0 for B1 and B2's owner
+// layout) and `smem` dynamic shared bytes.
 extern "C" {
 
 // hs, cs (T, B, H) <- gx (T, B, 4H), w_hh (H, 4H), h0, c0 (B, H).
@@ -979,11 +1298,11 @@ int paule_lstm_fwd(const float* gx, const float* w_hh, const float* h0,
                    int smem, void* stream) {
   if (!plan_ok(T, B, H, blocks, units, rows, chunk, stages, false))
     return cudaErrorInvalidValue;
-  return by_rows(rows, [&](auto r) {
+  return by_rows<1, 4, 8, 16, 24>(rows, [&](auto r) {
     void* args[] = {&T, &B, &H, &units, &chunk, &gx, &w_hh, &h0, &c0, &hs,
                     &cs};
     return launch_cooperative(lstm_fwd_persistent<decltype(r)::value>,
-                              blocks, units, smem, args, stream);
+                              blocks, units * kWarp, smem, args, stream);
   });
 }
 
@@ -995,12 +1314,30 @@ int paule_lstm_bwd(const float* acts, const float* cs_prev, const float* ghs,
                    int chunk, int stages, int smem, void* stream) {
   if (!plan_ok(T, B, H, blocks, units, rows, chunk, stages, false))
     return cudaErrorInvalidValue;
-  return by_rows(rows, [&](auto r) {
+  // the owner layout runs B2 below B=8, in passes of 1, 4 or 8 rows
+  return by_rows<1, 4, 8>(rows, [&](auto r) {
     void* args[] = {&T,    &B, &H,      &units, &chunk, &acts, &cs_prev,
                     &ghs,  &w, &dgates, &dh0,   &dc0};
     return launch_cooperative(lstm_bwd_persistent<decltype(r)::value>,
-                              blocks, units, smem, args, stream);
+                              blocks, units * kWarp, smem, args, stream);
   });
+}
+
+// The same outputs from the same inputs, by the tiled layout (from B=8 on):
+// `rows` (8) rows per row group, `chunk` rows a pass, `stages` ring slots
+// (ops/lstm_kernels.py: bwd_plan).
+int paule_lstm_bwd_tiled(const float* acts, const float* cs_prev,
+                         const float* ghs, const float* w, float* dgates,
+                         float* dh0, float* dc0, int T, int B, int H,
+                         int blocks, int units, int rows, int chunk,
+                         int stages, int smem, void* stream) {
+  if (!tiled_plan_ok(T, B, H, blocks, units, rows, chunk, stages))
+    return cudaErrorInvalidValue;
+  const int threads = (chunk + kTiledRows - 1) / kTiledRows * kSlices * kWarp;
+  void* args[] = {&T,       &B,    &H,       &units, &chunk, &stages, &acts,
+                  &cs_prev, &ghs,  &w,       &dgates, &dh0,  &dc0};
+  return launch_cooperative(lstm_bwd_persistent_tiled, blocks, threads, smem,
+                            args, stream);
 }
 
 // hs1, cs1, hs2, cs2 (T, B, H) <- gates1 (T, B, 4H), w1 = W_hh1 (H, 4H),
@@ -1018,12 +1355,12 @@ int paule_lstm_stack2_fwd(const float* gates1, const float* w1,
   if (blocks % 2 ||
       !plan_ok(T, B, H, blocks / 2, units, rows, chunk, stages, true))
     return cudaErrorInvalidValue;
-  return by_rows(rows, [&](auto r) {
+  return by_rows<1, 4, 8, 16, 24>(rows, [&](auto r) {
     void* args[] = {&T,   &B,   &H,   &units, &chunk, &stages, &gates1,
                     &w1,  &w2,  &b2,  &h01,   &c01,   &h02,    &c02,
                     &w1T, &w2T, &hs1, &cs1,   &hs2,   &cs2};
     return launch_cooperative(lstm_stack2_fwd_persistent<decltype(r)::value>,
-                              blocks, units, smem, args, stream);
+                              blocks, units * kWarp, smem, args, stream);
   });
 }
 
@@ -1038,13 +1375,13 @@ int paule_lstm_stack2_bwd(const float* acts1, const float* acts2,
   if (blocks % 2 ||
       !plan_ok(T, B, H, blocks / 2, units, rows, chunk, stages, true))
     return cudaErrorInvalidValue;
-  return by_rows(rows, [&](auto r) {
+  return by_rows<1, 4, 8, 16, 24>(rows, [&](auto r) {
     void* args[] = {&T,       &B,        &H,    &units, &chunk,
                     &stages,  &acts1,    &acts2, &cs1_prev, &cs2_prev,
                     &ghs2,    &w1,       &w2,   &dgates1, &dgates2};
     return launch_cooperative(
-        lstm_stack2_bwd_persistent<decltype(r)::value>, blocks, units, smem,
-        args, stream);
+        lstm_stack2_bwd_persistent<decltype(r)::value>, blocks,
+        units * kWarp, smem, args, stream);
   });
 }
 

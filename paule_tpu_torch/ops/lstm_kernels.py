@@ -12,10 +12,12 @@ Each wrapper takes the plain version only for tensors on the CPU.  For a
 CUDA tensor it launches its kernel (float32, contiguous, one device) or
 raises; nothing falls back.  Each wrapper counts its launches in a plain
 integer attribute, ``<wrapper>.launches``, so a run can show that it went
-through the kernel.  While a traced call is open (:mod:`..tracing`), each
-wrapper also records the call as an LSTM op: family (``single``: B1/B2,
-``pair``: B3/B4), direction, T, B and H, timed on the card by an event
-pair recorded right around the kernel's launch, whatever kernel
+through the kernel; B2's also counts those that took its tiled layout
+(``lstm_bwd.tiled``; from B=8 on, :func:`bwd_plan`).  While a traced call
+is open (:mod:`..tracing`), each wrapper also records the call as an LSTM
+op: family (``single``: B1/B2, ``pair``: B3/B4), direction, T, B and H,
+timed on the card by an event pair recorded right around the kernel's
+launch, whatever kernel
 implements it, and the model that launched it: a forward takes
 ``tracing.MODEL``, the autograd functions save it for their backward.
 The kernel library is built with ``nvcc`` on first use into
@@ -44,6 +46,7 @@ from .cuda_build import CudaLibrary, check_tensor as _check
 
 LIBRARY = CudaLibrary("lstm.cu", {
     "paule_lstm_fwd": (6, 9), "paule_lstm_bwd": (7, 9),
+    "paule_lstm_bwd_tiled": (7, 9),
     "paule_lstm_stack2_fwd": (14, 9), "paule_lstm_stack2_bwd": (9, 9)})
 build = LIBRARY.build
 _launch = LIBRARY.launch
@@ -62,13 +65,32 @@ MIN_STAGES, MAX_STAGES = 2, 8
 #: floats per batch row of a backward step's prefetched inputs: the acts of
 #: the four gates, the previous cell state, the hidden cotangent
 IN_FLOATS = 6
+#: B2 takes the tiled layout from this batch on (where its plan fits);
+#: below it, the owner layout, which measured faster at B=2 and B=4
+TILED_MIN_BATCH = 8
+#: the tiled B2: warps splitting a row group's reduction axis (128 columns
+#: each per ring slot), columns of dgates per ring slot, units a pass sums,
+#: rows a row group sums, most row groups a block
+SLICES = 8
+SLOT_COLS = SLICES * 128
+TILED_UNITS = 6
+TILED_ROWS = 8
+ROW_GROUPS = 2
 
 #: one cooperative launch: ``blocks`` blocks of ``units`` hidden units (B3,
 #: B4: half the blocks per layer), ``rows`` batch rows per pass, ``chunk``
 #: rows staged in shared memory at a time, ``stages`` tiles in each warp's
-#: weight ring (B3, B4; 0 for B1, B2), ``smem`` dynamic shared bytes a block
+#: weight ring (B3, B4; 0 for B1 and B2's owner layout), ``smem`` dynamic
+#: shared bytes a block
 LaunchPlan = collections.namedtuple("LaunchPlan",
                                     "blocks units rows chunk stages smem")
+
+
+class TiledPlan(LaunchPlan):
+    """A plan of B2's tiled layout (:func:`bwd_tiled_plan`), launched by
+    the library's ``paule_lstm_bwd_tiled``: ``rows`` a row group, ``chunk``
+    rows a pass, ``stages`` slots of its ``dgates`` ring."""
+    __slots__ = ()
 
 
 def _ceil_div(a, b):
@@ -138,12 +160,47 @@ def fwd_plan(hidden, batch, n_sm, smem_limit):
 
 
 def bwd_plan(hidden, batch, n_sm, smem_limit):
-    """B2's launch plan.  A block holds its units' W_hh rows (``4H`` floats
-    a unit), their cell-gradient carries, the next step's inputs
-    (:data:`IN_FLOATS` a row) and staged ``dgates`` rows (``4H`` floats
-    each)."""
+    """B2's launch plan at (H, B), whose type names its layout: the tiled
+    layout's (a :class:`TiledPlan`, :func:`bwd_tiled_plan`) from
+    :data:`TILED_MIN_BATCH` rows on where it fits, else the owner layout's
+    (a :class:`LaunchPlan`, ``stages`` 0): a block holds its units'
+    W_hh rows (``4H`` floats a unit), their cell-gradient carries, the next
+    step's inputs (:data:`IN_FLOATS` a row) and staged ``dgates`` rows
+    (``4H`` floats each)."""
+    if batch >= TILED_MIN_BATCH:
+        plan = bwd_tiled_plan(hidden, batch, n_sm, smem_limit)
+        if plan is not None:
+            return plan
     return _one_layer_plan("B2", hidden, batch, n_sm, smem_limit, 4 * hidden,
                            IN_FLOATS, 4 * hidden)
+
+
+def bwd_tiled_plan(hidden, batch, n_sm, smem_limit):
+    """The tiled B2's plan, or ``None`` where not even one ring slot fits:
+    as few units per block as keep one block per SM; :data:`TILED_ROWS`
+    rows per row group of :data:`SLICES` warps, up to :data:`ROW_GROUPS`
+    groups (fewer where the ring would not fit), whose rows (``chunk``)
+    make a pass; ``stages`` ring slots of ``dgates`` columns
+    (:data:`SLOT_COLS` of each of the pass's rows), as many as fit up to
+    one per slot of the step.  A block holds in shared memory its units'
+    W_hh rows, the ring, the slices' sums (``SLICES x rows x TILED_UNITS``)
+    and the first pass's next inputs (``TILED_UNITS x rows x
+    IN_FLOATS``)."""
+    units = _ceil_div(hidden, n_sm)
+    _check_units("B2", hidden, units)
+    g = 4 * hidden
+    for groups in range(min(ROW_GROUPS, _ceil_div(batch, TILED_ROWS)), 0,
+                        -1):
+        alloc = TILED_ROWS * groups
+        fixed = F32 * (units * g + (SLICES + IN_FLOATS) * TILED_UNITS * alloc)
+        slot = F32 * alloc * SLOT_COLS
+        stages = min(_ceil_div(g, SLOT_COLS), MAX_STAGES,
+                     (smem_limit - fixed) // slot)
+        if stages >= 1:
+            return TiledPlan(_ceil_div(hidden, units), units, TILED_ROWS,
+                             min(batch, alloc), stages,
+                             fixed + stages * slot)
+    return None
 
 
 def _two_layer_plan(what, hidden, batch, n_sm, smem_limit, in_floats,
@@ -316,23 +373,30 @@ def lstm_bwd(acts, cs_prev, ghs, w_hh, model=None):
     if seq < 1:
         raise ValueError("empty sequence")
     plan = bwd_plan(hidden, batch, *device_limits(dev.index))
+    tiled = isinstance(plan, TiledPlan)
     dgates = torch.empty_like(acts)
     dh0 = torch.empty((batch, hidden), device=dev, dtype=torch.float32)
     dc0 = torch.empty_like(dh0)
-    args = ("paule_lstm_bwd", dev, (acts, cs_prev, ghs, w_hh, dgates, dh0,
-                                    dc0), (seq, batch, hidden, *plan))
+    args = ("paule_lstm_bwd_tiled" if tiled else "paule_lstm_bwd", dev,
+            (acts, cs_prev, ghs, w_hh, dgates, dh0, dc0),
+            (seq, batch, hidden, *plan))
     if tracing.ON:
         events = tracing.op_events(dev)
         _launch(*args, events=events)
         tracing.op("single", "bwd", seq, batch, hidden, events, dev,
                    model)
+        if tiled:
+            tracing.count("lstm_bwd_tiled")
     else:
         _launch(*args)
     lstm_bwd.launches += 1
+    lstm_bwd.tiled += tiled
     return dgates, dh0, dc0
 
 
 lstm_bwd.launches = 0
+#: launches that took the tiled layout
+lstm_bwd.tiled = 0
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +535,7 @@ KERNELS = (lstm_fwd, lstm_bwd, lstm_stack2_fwd, lstm_stack2_bwd)
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+    lstm_bwd.tiled = 0
 
 
 # ---------------------------------------------------------------------------

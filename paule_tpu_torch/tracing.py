@@ -55,7 +55,8 @@ host-to-device copy, an event or device synchronize), and
 ``worker_waits``, the same on other threads (the synthesis thread);
 ``d2h_bytes`` and ``h2d_bytes``; ``adam_steps`` by model;
 ``snapshots`` synthesised; ``sync_replicas`` calls that copied and
-``sync_replicas_bytes``.
+``sync_replicas_bytes``; ``lstm_bwd_tiled``, the B2 launches that took
+the tiled layout (``ops.lstm_kernels.TiledPlan``).
 
 A call opened inside another adds its ops and counters to the outer
 one's when it closes.  :func:`calls` returns the last 64 finished
@@ -91,7 +92,8 @@ MODEL = None
 OTHER = "other"
 
 COUNTERS = ("host_waits", "worker_waits", "d2h_bytes", "h2d_bytes",
-            "snapshots", "sync_replicas", "sync_replicas_bytes")
+            "snapshots", "sync_replicas", "sync_replicas_bytes",
+            "lstm_bwd_tiled")
 
 
 def enable(on=True):
